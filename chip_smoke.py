@@ -8,19 +8,21 @@ Phases, one JSON line each; any failure exits non-zero:
 2. build   — compile every CUDA kernel of the port from the sources in
    this checkout (one ``nvcc`` per source, all at once); count the
    tensor-core (HMMA) instructions of each flash kernel in its SASS
-   (``cuobjdump``): the bf16 K4 and K5a bodies must have them, and no
-   CUDA-core K4 or K5a body is compiled for bf16.
+   (``cuobjdump``): the twelve bf16 bodies (K4, K3, K5a, K5b at d 64,
+   128 and 256) must have them, no CUDA-core flash body is compiled for
+   bf16, and no flash kernel spills registers (``ptxas -v``).
 3. kernel_check — each kernel against its plain PyTorch version on the
    card, at the main paths' geometries, with the tolerance stated: K1
    (``paged_decode``) on bf16/fp32 pools and on int8 and int4 code
    pools, K2 (``paged_decode_fused``) on all four with ring_len 0, 1
    and H; K4 (``flash_fwd``) causal at sq 64, 256 and 2048 and full
    attention, K3 (``flash_fwd_chunk``) at sq 64 and 256 against 64, 512
-   and 1792 cache rows with cache lengths 0, mid and full; K5a
+   and 1792 cache rows with cache lengths 0, mid and full, then again
+   with the cache rows past each cache length poisoned (1e4); K5a
    (``flash_bwd_dkv``) and K5b (``flash_bwd_dq``) at d 64, 128 and 256,
    groups 1, 4 and 8, causal at sq 100 and 300 and full at 100 x 300,
-   bf16 and fp32. bf16 K4 and K5a run on the tensor cores, fp32 on the
-   CUDA cores (``impl`` on each line); each K4/K5 line also carries
+   bf16 and fp32. bf16 flash kernels run on the tensor cores, fp32 on
+   the CUDA cores (``impl`` on each line); each K4/K5 line also carries
    ``sdpa_err``, the same error measure for
    ``scaled_dot_product_attention`` (forward, or its backward) against
    the same plain version, as the yardstick of what a library kernel
@@ -69,7 +71,9 @@ Phases, one JSON line each; any failure exits non-zero:
     on the card (K4, K5a, K5b) and on the CPU (plain paths) from the
     same params: losses and grad norms agree.
 
-Then the ``kernels`` line and, last, ``{"ok": true, "device": ...}``.
+Then the ``kernels`` line (K3's entry also times the long shape, K5b's
+the 7B shape, under ``times_by_shape``) and, last, ``{"ok": true,
+"device": ...}``.
 Every launch count in the ``kernels`` line is from a main-path phase
 (5-8, 10, and ``kv_probe`` for K6), with the counts set to 0 just
 before it; launches made to compare or time a kernel do not count.
@@ -182,22 +186,30 @@ def _sass_hmma(lib_path):
 
 def phase_build():
     from skypilot_tpu_torch.ops import _build
+    for name in _build.SOURCES:      # built anew: the report is this run's
+        if os.path.exists(_build.library_path(name)):
+            os.unlink(_build.library_path(name))
     t0 = time.monotonic()
     paths = _build.build_all()
     hmma = {name: _sass_hmma(_build.library_path(name))
             for name in ('flash_fwd', 'flash_bwd')}
+    # K4, K3, K5a and K5b at d 64, 128 and 256: twelve bf16 bodies.
     tc = {k: n for lib in hmma.values() for k, n in lib.items()
           if '_tc<' in k}
-    require(len(tc) == 6 and all(n > 0 for n in tc.values()),
-            f'bf16 K4/K5a bodies without tensor-core instructions: {tc}')
+    require(len(tc) == 12 and all(n > 0 for n in tc.values()),
+            f'bf16 flash bodies without tensor-core instructions: {tc}')
     cuda_core_bf16 = [k for lib in hmma.values() for k in lib
-                      if ('flash_fwd_kernel<bf16' in k and 'chunk' not in k)
-                      or 'flash_bwd_dkv_kernel<bf16' in k]
+                      if any(f'{body}<bf16' in k for body in (
+                          'flash_fwd_kernel', 'flash_bwd_dkv_kernel',
+                          'flash_bwd_dq_kernel'))]
     require(not cuda_core_bf16,
-            f'CUDA-core K4/K5a bodies compiled for bf16: {cuda_core_bf16}')
+            f'CUDA-core flash bodies compiled for bf16: {cuda_core_bf16}')
     regs = {name: [ln.strip() for ln in log.splitlines()
                    if 'registers' in ln]
             for name, log in _build.build_logs.items()}
+    spills = {k: sum(' 0 bytes spill stores' not in ln
+                     for ln in log.splitlines() if 'spill stores' in ln)
+              for k, log in _build.build_logs.items()}
     emit({'phase': 'build', 'seconds': round(time.monotonic() - t0, 3),
           'libraries': [os.path.relpath(p) for p in paths],
           'ptxas_register_lines': {k: len(v) for k, v in regs.items()},
@@ -205,11 +217,9 @@ def phase_build():
               k: max((int(ln.split('Used ')[1].split(' registers')[0])
                       for ln in v if 'Used ' in ln), default=None)
               for k, v in regs.items()},
-          'ptxas_spills': {k: sum(' 0 bytes spill stores' not in ln
-                                  for ln in log.splitlines()
-                                  if 'spill stores' in ln)
-                           for k, log in _build.build_logs.items()},
-          'sass_hmma_by_kernel': hmma})
+          'ptxas_spills': spills, 'sass_hmma_by_kernel': hmma})
+    require(spills['flash_fwd'] == 0 and spills['flash_bwd'] == 0,
+            f'flash kernels spill registers: {spills}')
 
 
 # --------------------------------------------------------------------- 3
@@ -479,6 +489,7 @@ FLASH_CASES = ((2, 64, 64, True), (2, 256, 256, True), (1, 2048, 2048, True),
                (2, 64, 300, False))          # (b, sq, skv, causal) for K4
 FLASH_CHUNKS = ((64, 64), (64, 512), (64, 1792), (256, 64), (256, 512),
                 (256, 1792))                 # (sq, cache rows) for K3
+POISON = 1e4                  # K3: stale cache rows past cache_len
 
 
 def _flash_inputs(torch, b, sq, skv, hq, hkv, d, dtype, seed):
@@ -489,12 +500,10 @@ def _flash_inputs(torch, b, sq, skv, hq, hkv, d, dtype, seed):
     return f(b, sq, hq, d), f(b, skv, hkv, d), f(b, skv, hkv, d)
 
 
-def _flash_impl(kernel, dtype):
-    """Which body a flash kernel runs for operands of ``dtype``: bf16 K4
-    and K5a on the tensor cores, the rest on the CUDA cores."""
-    tc = (str(dtype).endswith('bfloat16')
-          and kernel in ('flash_fwd', 'flash_bwd_dkv'))
-    return 'tensor_core' if tc else 'cuda_core'
+def _flash_impl(dtype):
+    """Which body a flash kernel (K3, K4, K5a, K5b) runs for operands of
+    ``dtype``: bf16 on the tensor cores, fp32 on the CUDA cores."""
+    return 'tensor_core' if str(dtype).endswith('bfloat16') else 'cuda_core'
 
 
 def phase_flash_checks(torch):
@@ -527,7 +536,7 @@ def phase_flash_checks(torch):
         worst[kernel] = max(worst[kernel], err)
         emit({'phase': 'kernel_check', 'kernel': kernel, 'case': name,
               'q_dtype': str(dtype).replace('torch.', ''),
-              'impl': _flash_impl(kernel, dtype), **line,
+              'impl': _flash_impl(dtype), **line,
               'max_abs_err_out': err,
               'max_err_beyond_output_rounding': excess,
               'max_abs_err_lse': lse_err, 'tol_out': tol_out,
@@ -563,13 +572,23 @@ def phase_flash_checks(torch):
                                     seed=split, **geo)
             lens = [0, split // 2 + 1, split]
             cl = torch.tensor(lens, dtype=torch.int32, device='cuda')
-            out = fa.flash_attention(q, k, v, cache_len=cl, kv_split=split)
-            torch.cuda.synchronize()
-            want = fa.flash_chunk_reference(q.float(), k.float(), v.float(),
-                                            cl, split)
-            judge('flash_fwd_chunk', name, dtype, out, want,
-                  {'b': 3, 'sq': sq, 'kv_split': split, 'cache_len': lens,
-                   **geo})
+            # Then again with the cache rows past each row's cache_len
+            # set to POISON: a kernel that reads them unmasked, or masks
+            # the wrong rows, lands far beyond the tolerance.
+            for poison in (None, POISON):
+                if poison is not None:
+                    for row, n in enumerate(lens):
+                        k[row, n:split] = poison
+                        v[row, n:split] = poison
+                out = fa.flash_attention(q, k, v, cache_len=cl,
+                                         kv_split=split)
+                torch.cuda.synchronize()
+                want = fa.flash_chunk_reference(q.float(), k.float(),
+                                                v.float(), cl, split)
+                judge('flash_fwd_chunk', name, dtype, out, want,
+                      {'b': 3, 'sq': sq, 'kv_split': split,
+                       'cache_len': lens, 'poison_past_cache_len': poison,
+                       **geo})
             del q, k, v, out, want
     torch.cuda.empty_cache()
     fa.launch_counts.update(before)      # comparison launches do not count
@@ -751,7 +770,7 @@ def phase_flash_bwd_checks(torch):
                 bool(torch.isfinite(a).all()) for a in grads))
             worst[kernel] = max(worst[kernel], err)
             emit({'phase': 'kernel_check', 'kernel': kernel,
-                  'q_dtype': name, 'impl': _flash_impl(kernel, name),
+                  'q_dtype': name, 'impl': _flash_impl(name),
                   'b': b, 'sq': sq, 'skv': skv,
                   'causal': causal, 'hq': hq, 'hkv': hkv, 'd': d,
                   'max_abs_err': err, 'max_err_beyond_rounding': excess,
@@ -1764,14 +1783,22 @@ def phase_train_reference(torch, seed):
 
 
 # --------------------------------------------------------------------- main
+_TIME_KEYS = ('ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms')
+
+
 def _kernel_entry(name, source, replaces, launches, worst, timing):
     return {'name': name, 'route': 'cuda',
             'source': f'skypilot_tpu_torch/csrc/{source}',
             'replaces': f'skypilot_tpu/ops/{replaces}',
             'launches': launches, 'max_abs_err': worst,
-            'ms': timing['ms'], 'plain_ms': timing['plain_ms'],
-            'bound_ms': timing['bound_ms'], 'bound_by': timing['bound_by'],
-            'library_ms': timing['library_ms']}
+            **{k: timing[k] for k in _TIME_KEYS}}
+
+
+def _times_by_shape(flash_times, kernel, labels):
+    """A flash kernel's timings at several shapes, for its entry in
+    the ``kernels`` line beside the main-path shape's."""
+    return {label: {k: flash_times[(kernel, label)][k] for k in _TIME_KEYS}
+            for label in labels}
 
 
 def main(argv=None) -> int:
@@ -1850,10 +1877,12 @@ def main(argv=None) -> int:
                           variants['paged_decode_attention_fused[int8]'],
                           worst['paged_decode_fused'],
                           times['paged_decode_fused[int8]']),
-            _kernel_entry('flash_fwd_chunk', 'flash_fwd.cu',
-                          'flash_attention.py:159', k3_launches,
-                          worst['flash_fwd_chunk'],
-                          flash_times[('flash_fwd_chunk', 'served')]),
+            dict(_kernel_entry('flash_fwd_chunk', 'flash_fwd.cu',
+                               'flash_attention.py:159', k3_launches,
+                               worst['flash_fwd_chunk'],
+                               flash_times[('flash_fwd_chunk', 'served')]),
+                 times_by_shape=_times_by_shape(
+                     flash_times, 'flash_fwd_chunk', ('served', 'long'))),
             dict(_kernel_entry('flash_fwd', 'flash_fwd.cu',
                                'flash_attention.py:44',
                                k4_launches + train_k4, worst['flash_fwd'],
@@ -1864,10 +1893,12 @@ def main(argv=None) -> int:
                           'flash_attention.py:284', k5a_launches,
                           worst['flash_bwd_dkv'],
                           flash_times[('flash_bwd_dkv', 'train')]),
-            _kernel_entry('flash_bwd_dq', 'flash_bwd.cu',
-                          'flash_attention.py:341', k5b_launches,
-                          worst['flash_bwd_dq'],
-                          flash_times[('flash_bwd_dq', 'train')])]})
+            dict(_kernel_entry('flash_bwd_dq', 'flash_bwd.cu',
+                               'flash_attention.py:341', k5b_launches,
+                               worst['flash_bwd_dq'],
+                               flash_times[('flash_bwd_dq', 'train')]),
+                 times_by_shape=_times_by_shape(
+                     flash_times, 'flash_bwd_dq', ('train', '7b')))]})
     except Exception as e:  # pylint: disable=broad-except
         import traceback
         traceback.print_exc()

@@ -27,7 +27,10 @@
 // dv, dk) and 6 d in K5b (s, dp, dq); they belong on the tensor cores
 // (989 TFLOP/s bf16).
 //
-// Two kernel bodies for K5a, chosen by the operands' dtype in `dispatch`:
+// Two kernel bodies for each, chosen by the operands' dtype in
+// `dispatch`: bf16 runs the tensor-core bodies, fp32 the CUDA-core ones
+// (which hold the fp32 parity checks to 2e-5; bf16 mma operands could
+// not). No bf16 call reaches a CUDA-core body.
 //
 // bf16 K5a (`flash_bwd_dkv_kernel_tc`, tensor cores): one block per (k
 // tile of BK rows, kv head, batch row); warp w owns 16 k rows and 64
@@ -51,24 +54,39 @@
 // accumulator in registers). The GQA sum stays in the kernel: no
 // atomics, no second pass.
 //
-// fp32 K5a and K5b in both dtypes (`flash_bwd_dkv_kernel`,
-// `flash_bwd_dq_kernel`, CUDA cores): blocks of 256 threads. K5a: one
-// block per (k tile of BK rows, kv head, batch row); it stages its K and
-// V tiles once, then walks the group's query heads and, for each, the q
-// tiles of BQ rows from the first one that holds a row >= the tile's
-// first k row (causal), keeping the fp32 dK and dV tiles in registers
-// and writing each once. K5b: one block per (q tile, q head, batch row);
-// it stages Q and dO once and walks the k tiles up to the causal limit,
-// keeping dQ in registers. BQ = BK = 64 for d 64 and 128, 32 for d 256
-// (shared memory: K5a holds four operand tiles and two score tiles, 166
-// KB at d 128). Thread (rg, cg), rg = tid / 16, cg = tid % 16, owns rows
-// rg * R .. rg * R + R - 1 and columns cg + 16 j of every tile it
-// accumulates, so the score-tile products read broadcast rows and 16
-// consecutive columns; padded shared-memory strides keep those reads
-// free of bank conflicts. Ragged q and k tiles are masked row by row
-// (out-of-range rows are zero-filled, never loaded, and their p and ds
-// are 0). A bf16 K5a call never reaches this body; bf16 K5b on the
-// tensor cores is later work.
+// bf16 K5b (`flash_bwd_dq_kernel_tc`, tensor cores): K4's structure with
+// K5a's arithmetic. One block per (q tile of BQ = 64 rows, q head, batch
+// row); warp w owns 16 q rows and CW columns of dQ (d 64 and 128: 4
+// warps, all columns; d 256: 8 warps, two along head_dim, each
+// recomputing its row group's scores), so no warp holds more than 64 dQ
+// accumulator floats. Q, dO, lse and delta are copied once (d 64 keeps
+// Q and dO as A fragments in registers; wider heads reload them with
+// ldmatrix); K/V tiles of BK rows (64; 32 at d 128 and 256) are
+// double-buffered by cp.async up to the causal limit, so tiles above the
+// block's diagonal are never loaded. S = Q K^T and dP = dO V^T on
+// mma.sync (K and V as B operands through ldmatrix); P = exp(S scale -
+// lse) and dS = P (dP - delta) scale in the accumulator layout, masked
+// only on tiles that cross the diagonal or the kv end; dQ += dS K with dS
+// from registers as the A operand (split into bf16 high and low parts,
+// as in K5a) and K through ldmatrix.trans. A warp whose rows all lie
+// above a tile skips it. dQ stays in fp32 registers and is written once.
+//
+// fp32 K5a and K5b (`flash_bwd_dkv_kernel`, `flash_bwd_dq_kernel`, CUDA
+// cores): blocks of 256 threads. K5a: one block per (k tile of BK rows,
+// kv head, batch row); it stages its K and V tiles once, then walks the
+// group's query heads and, for each, the q tiles of BQ rows from the
+// first one that holds a row >= the tile's first k row (causal), keeping
+// the fp32 dK and dV tiles in registers and writing each once. K5b: one
+// block per (q tile, q head, batch row); it stages Q and dO once and
+// walks the k tiles up to the causal limit, keeping dQ in registers. BQ
+// = BK = 64 for d 64 and 128, 32 for d 256 (shared memory: K5a holds
+// four operand tiles and two score tiles, 166 KB at d 128). Thread (rg,
+// cg), rg = tid / 16, cg = tid % 16, owns rows rg * R .. rg * R + R - 1
+// and columns cg + 16 j of every tile it accumulates, so the score-tile
+// products read broadcast rows and 16 consecutive columns; padded
+// shared-memory strides keep those reads free of bank conflicts. Ragged
+// q and k tiles are masked row by row (out-of-range rows are
+// zero-filled, never loaded, and their p and ds are 0).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -597,6 +615,227 @@ cudaError_t launch_dkv_tc(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// --------------------------------------------------------------- bf16 K5b
+template <int D>
+struct TcDq {
+  static constexpr int BQ = 64;                   // q rows per block
+  static constexpr int BK = D >= 128 ? 32 : 64;   // k rows per tile
+  static constexpr int kRowWarps = BQ / 16;       // warps along the q rows
+  static constexpr int CW = D >= 256 ? 128 : D;   // dQ columns per warp
+  static constexpr int kColWarps = D / CW;        // warps along head_dim
+  static constexpr int kThreads = 32 * kRowWarps * kColWarps;
+  static constexpr int SD = D + skt_mma::kPad;    // shared row stride
+  static constexpr bool kQRegs = D == 64;         // Q, dO fragments in regs
+  // Q, dO, 2 x (K, V) in bf16, then lse and delta in fp32.
+  static constexpr size_t kSmemBytes =
+      (size_t)(2 * BQ + 4 * BK) * SD * 2 + 2 * BQ * sizeof(float);
+};
+
+template <int D>
+__global__ void __launch_bounds__(TcDq<D>::kThreads)
+flash_bwd_dq_kernel_tc(const Args a) {
+  using S = TcDq<D>;
+  using bf16 = __nv_bfloat16;
+  constexpr int BQ = S::BQ, BK = S::BK, SD = S::SD, NTHR = S::kThreads;
+  constexpr int KC = D / 16;           // k chunks of the head dim
+  constexpr int NT = BK / 8;           // 8-column tiles of S (k columns)
+  constexpr int ND = S::CW / 8;        // 8-column tiles of the warp's dQ
+  extern __shared__ uint4 smem_tc[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_tc);    // [BQ][SD]
+  bf16* dos = qs + BQ * SD;                        // [BQ][SD]
+  bf16* ks = dos + BQ * SD;                        // [2][BK][SD]
+  bf16* vs = ks + 2 * BK * SD;                     // [2][BK][SD]
+  float* lse_s = reinterpret_cast<float*>(vs + 2 * BK * SD);  // [BQ]
+  float* delta_s = lse_s + BQ;                     // [BQ]
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int wr = warp % S::kRowWarps;  // the warp's 16 q rows
+  const int col0 = (warp / S::kRowWarps) * S::CW;   // its dQ columns
+  const int q_start = blockIdx.x * BQ;
+  const int h = blockIdx.y;
+  const int bi = blockIdx.z;
+  const int kvh = h / (a.hq / a.hkv);
+  const int q_end = min(q_start + BQ, a.sq);
+  const int w_row0 = q_start + wr * 16;           // the warp's first q row
+  const bf16* kg = static_cast<const bf16*>(a.k) + bi * a.st[1][0] +
+                   kvh * a.st[1][2];
+  const bf16* vg = static_cast<const bf16*>(a.v) + bi * a.st[2][0] +
+                   kvh * a.st[2][2];
+
+  auto load_rows = [](bf16* dst, const bf16* src, long long rstride,
+                      int row0, int rows, int limit) {
+    skt_mma::cp_async_rows<D, SD, NTHR>(dst, src, rstride, row0, rows,
+                                        limit);
+  };
+
+  // k tiles that can hold a valid row for this q tile.
+  const int k_stop = a.causal ? min(q_end, a.skv) : a.skv;
+  const int n_tiles = (k_stop + BK - 1) / BK;
+  load_rows(qs, static_cast<const bf16*>(a.q) + bi * a.st[0][0] +
+                    h * a.st[0][2],
+            a.st[0][1], q_start, BQ, a.sq);
+  load_rows(dos, static_cast<const bf16*>(a.dout) + bi * a.st[3][0] +
+                     h * a.st[3][2],
+            a.st[3][1], q_start, BQ, a.sq);
+  const long long row = ((long long)bi * a.hq + h) * a.sq;
+  for (int r = threadIdx.x; r < BQ; r += NTHR) {
+    const bool ok = q_start + r < a.sq;
+    skt_mma::cp_async_4(lse_s + r, a.lse + (ok ? row + q_start + r : 0), ok);
+    skt_mma::cp_async_4(delta_s + r, a.delta + (ok ? row + q_start + r : 0),
+                        ok);
+  }
+  if (n_tiles > 0) {
+    load_rows(ks, kg, a.st[1][1], 0, BK, a.skv);
+    load_rows(vs, vg, a.st[2][1], 0, BK, a.skv);
+  }
+  skt_mma::cp_async_commit();
+
+  float dq[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
+  uint32_t qf[S::kQRegs ? KC : 1][4], df[S::kQRegs ? KC : 1][4];
+  // lse (log2 units) and delta of the lane's rows gid and gid + 8.
+  float lse2[2] = {0.f, 0.f}, dlt[2] = {0.f, 0.f};
+  const float sl2 = a.scale * skt_mma::kLog2e;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int buf = t & 1;
+    const int k_start = t * BK;
+    if (t + 1 < n_tiles) {             // next tile loads during this one
+      load_rows(ks + (buf ^ 1) * BK * SD, kg, a.st[1][1], k_start + BK, BK,
+                a.skv);
+      load_rows(vs + (buf ^ 1) * BK * SD, vg, a.st[2][1], k_start + BK, BK,
+                a.skv);
+    }
+    skt_mma::cp_async_commit();
+    skt_mma::cp_async_wait<1>();
+    __syncthreads();
+    if (t == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        lse2[r] = lse_s[wr * 16 + gid + 8 * r] * skt_mma::kLog2e;
+        dlt[r] = delta_s[wr * 16 + gid + 8 * r];
+      }
+      if constexpr (S::kQRegs) {
+#pragma unroll
+        for (int kc = 0; kc < KC; ++kc) {
+          skt_mma::ldmatrix_x4(
+              qf[kc], skt_mma::a_frag_addr(qs, SD, wr * 16, kc * 16, lane));
+          skt_mma::ldmatrix_x4(
+              df[kc], skt_mma::a_frag_addr(dos, SD, wr * 16, kc * 16, lane));
+        }
+      }
+    }
+    // A warp whose rows all lie above this tile (causal) skips it.
+    const bool live = !a.causal || k_start <= w_row0 + 15;
+    if (live) {
+      const bf16* kt = ks + buf * BK * SD;
+      const bf16* vt = vs + buf * BK * SD;
+      // S = Q K^T and dP = dO V^T over the warp's 16 q rows.
+      float s[NT][4], dp[NT][4];
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+      for (int kc = 0; kc < KC; ++kc) {
+        uint32_t qa[4], da[4];
+        if constexpr (S::kQRegs) {
+#pragma unroll
+          for (int x = 0; x < 4; ++x) {
+            qa[x] = qf[kc][x];
+            da[x] = df[kc][x];
+          }
+        } else {
+          skt_mma::ldmatrix_x4(
+              qa, skt_mma::a_frag_addr(qs, SD, wr * 16, kc * 16, lane));
+          skt_mma::ldmatrix_x4(
+              da, skt_mma::a_frag_addr(dos, SD, wr * 16, kc * 16, lane));
+        }
+#pragma unroll
+        for (int np = 0; np < NT / 2; ++np) {
+          uint32_t bk[4], bv[4];
+          skt_mma::ldmatrix_x4(
+              bk, skt_mma::b_frag_addr(kt, SD, np * 16, kc * 16, lane));
+          skt_mma::ldmatrix_x4(
+              bv, skt_mma::b_frag_addr(vt, SD, np * 16, kc * 16, lane));
+          skt_mma::mma_16816(s[2 * np], qa, bk[0], bk[1]);
+          skt_mma::mma_16816(s[2 * np + 1], qa, bk[2], bk[3]);
+          skt_mma::mma_16816(dp[2 * np], da, bv[0], bv[1]);
+          skt_mma::mma_16816(dp[2 * np + 1], da, bv[2], bv[3]);
+        }
+      }
+      // P = exp(S scale - lse), exactly 0 where masked (only tiles that
+      // cross the diagonal or the kv end are masked); dS = P (dP -
+      // delta) scale, written over s.
+      const bool masked = k_start + BK > a.skv ||
+                          (a.causal && k_start + BK - 1 > w_row0);
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = exp2f(fmaf(s[n][e], sl2, -lse2[e >> 1]));
+          if (masked) {
+            const int kj = k_start + n * 8 + 2 * tig + (e & 1);
+            const int qi = w_row0 + gid + 8 * (e >> 1);
+            if (kj >= a.skv || (a.causal && kj > qi)) p = 0.f;
+          }
+          s[n][e] = p * (dp[n][e] - dlt[e >> 1]) * a.scale;
+        }
+      // dQ += dS K over the warp's columns, dS split into bf16 high and
+      // low parts, K through ldmatrix.trans.
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        uint32_t dhi[4], dlo[4];
+        skt_mma::acc_to_a_split(s[2 * kk], s[2 * kk + 1], dhi, dlo);
+#pragma unroll
+        for (int np = 0; np < ND / 2; ++np) {
+          uint32_t bk[4];
+          skt_mma::ldmatrix_x4_trans(
+              bk, skt_mma::bt_frag_addr(kt, SD, kk * 16, col0 + np * 16, lane));
+          skt_mma::mma_16816(dq[2 * np], dhi, bk[0], bk[1]);
+          skt_mma::mma_16816(dq[2 * np], dlo, bk[0], bk[1]);
+          skt_mma::mma_16816(dq[2 * np + 1], dhi, bk[2], bk[3]);
+          skt_mma::mma_16816(dq[2 * np + 1], dlo, bk[2], bk[3]);
+        }
+      }
+    }
+    __syncthreads();                   // buf is refilled two tiles on
+  }
+  skt_mma::cp_async_wait<0>();
+
+  bf16* dq_out = static_cast<bf16*>(a.dq);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = w_row0 + gid + 8 * r;
+    if (qi >= a.sq) continue;
+    bf16* o = dq_out + bi * a.st[4][0] + qi * a.st[4][1] + h * a.st[4][2];
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(o + col0 + n * 8 + 2 * tig) =
+          __floats2bfloat162_rn(dq[n][2 * r], dq[n][2 * r + 1]);
+  }
+}
+
+template <int D>
+cudaError_t launch_dq_tc(const Args& a, cudaStream_t stream) {
+  using S = TcDq<D>;
+  auto kernel = flash_bwd_dq_kernel_tc<D>;
+  if (S::kSmemBytes > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)S::kSmemBytes);
+    if (e != cudaSuccess) return e;
+  }
+  const dim3 grid((a.sq + S::BQ - 1) / S::BQ, a.hq, a.b);
+  kernel<<<grid, S::kThreads, S::kSmemBytes, stream>>>(a);
+  return cudaGetLastError();
+}
+
 // ---------------------------------------- fp32 K5a, K5b (CUDA cores)
 template <typename T, int D, bool kDkv>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
@@ -632,11 +871,11 @@ cudaError_t dispatch(const Args& a, int d, int dtype, cudaStream_t s) {
         case 128: return launch_dkv_tc<128>(a, s);
         case 256: return launch_dkv_tc<256>(a, s);
       }
-    } else {                           // bf16 K5b
+    } else {                           // bf16 K5b: the tensor-core body
       switch (d) {
-        case 64: return launch<__nv_bfloat16, 64, false>(a, s);
-        case 128: return launch<__nv_bfloat16, 128, false>(a, s);
-        case 256: return launch<__nv_bfloat16, 256, false>(a, s);
+        case 64: return launch_dq_tc<64>(a, s);
+        case 128: return launch_dq_tc<128>(a, s);
+        case 256: return launch_dq_tc<256>(a, s);
       }
     }
   } else if (dtype == 1) {

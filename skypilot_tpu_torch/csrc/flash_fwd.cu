@@ -25,14 +25,19 @@
 // close; at sq 2048 the operations (4 * d flops per valid (q, k) pair),
 // which belong on the tensor cores (989 TFLOP/s bf16).
 //
-// Two kernel bodies, chosen by the operands' dtype in `dispatch`:
+// Two kernel bodies for each, chosen by the operands' dtype in
+// `dispatch`: bf16 runs the tensor-core body, fp32 the CUDA-core one. No
+// bf16 call reaches the CUDA-core body.
 //
-// bf16 K4 (`flash_fwd_kernel_tc`, tensor cores): one block of 4 warps
-// per (q tile of BQ = 64 rows, q head, batch row); warp w owns q rows
-// 16 w .. 16 w + 15. The Q tile is copied to shared memory once and, for
-// d <= 128, kept as mma A fragments in registers for the whole kv loop
-// (d 256 reloads them with ldmatrix: registers hold the 16 x 256 fp32
-// output instead). K/V tiles of BK rows (64; 32 at d 256) are
+// bf16 K4 and K3 (`flash_fwd_kernel_tc<D, kChunk>`, tensor cores): one
+// block per (q tile of BQ = 64 rows, q head, batch row); warp w owns q
+// rows 16 (w % 4) .. + 15 and CW output columns: all of them at d 64 and
+// 128 (4 warps); at d 256 two warps split the columns (8 warps, each
+// recomputing its row group's scores), so no warp holds more than 64
+// output accumulator floats (128 left K3 at d 256 past 255 registers).
+// The Q tile is copied to shared memory once and, for d <= 128, kept as
+// mma A fragments in registers for the whole kv loop (d 256 reloads them
+// with ldmatrix). K/V tiles of BK rows (64; 32 at d 256) are
 // double-buffered in padded shared memory with cp.async, so tile j + 1
 // loads while tile j computes. S = Q K^T is mma.sync m16n8k16 (bf16 in,
 // fp32 accumulators); the online softmax runs on the accumulators (row
@@ -46,6 +51,15 @@
 // flip at |out| 1.14, d 256.) Causal tiles above the block's diagonal
 // are never loaded; only tiles that cross the diagonal or the ragged kv
 // end are masked, and a warp whose rows all lie above a tile skips it.
+// K3 (kChunk) is the same body with a second kv walk in front: the
+// row's valid cache rows [0, min(cache_len[b], split)) of the cache
+// operands, in tiles from cache row 0 (rows past cache_len zero-filled,
+// never read: a slot cache holds stale rows there; only the tile that
+// crosses cache_len is masked, and tiles wholly past it are not walked),
+// then the chunk operands' rows in tiles from chunk row 0, causal against
+// the chunk-local q rows exactly as K4's walk is. No tile straddles
+// split, so each tile has one source and one mask rule; K3 writes no
+// logsumexp.
 //
 // fp32 K4 and K3 (`flash_fwd_kernel`, CUDA cores): one block of 128
 // threads per (q tile of BQ rows, q head, batch row); BQ = 64 (d 64,
@@ -59,9 +73,10 @@
 // rg * R .. rg * R + R - 1 (R = BQ / 16) and columns cg + 8 j of both
 // the score tile and the output tile, so m and l live in registers and
 // row reductions are 8-lane shuffles. Padded shared-memory strides keep
-// the tile reads free of bank conflicts. It runs fp32 operands (the
-// fp32 parity checks) and K3 in both dtypes; a bf16 K4 call never
-// reaches it. Not done yet: K3 on the tensor cores, TMA/wgmma, split-KV.
+// the tile reads free of bank conflicts. It runs fp32 operands only
+// (the fp32 parity checks hold it to 1e-5, which bf16 mma operands could
+// not). Not done yet: TMA/wgmma, and a split of K3's cache walk across
+// blocks (at the long shape its grid is 128 blocks, under one wave).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <float.h>
@@ -265,25 +280,28 @@ flash_fwd_kernel(const Args a) {
   }
 }
 
-// ---------------------------------------------------------------- bf16 K4
+// ----------------------------------------------------------- bf16 K4, K3
 template <int D>
 struct TcShape {
   static constexpr int BQ = 64;                   // q rows per block
   static constexpr int BK = D >= 256 ? 32 : 64;   // kv rows per tile
+  static constexpr int CW = D >= 256 ? 128 : D;   // output columns per warp
+  static constexpr int kColWarps = D / CW;        // warps along head_dim
+  static constexpr int kThreads = 32 * (BQ / 16) * kColWarps;
   static constexpr int SD = D + skt_mma::kPad;    // shared row stride
   static constexpr bool kQRegs = D <= 128;        // Q fragments in registers
   static constexpr int kSmemElems = BQ * SD + 4 * BK * SD;  // Q, 2 x (K, V)
 };
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
+template <int D, bool kChunk>
+__global__ void __launch_bounds__(TcShape<D>::kThreads)
 flash_fwd_kernel_tc(const Args a) {
   using S = TcShape<D>;
   using bf16 = __nv_bfloat16;
-  constexpr int BQ = S::BQ, BK = S::BK, SD = S::SD;
+  constexpr int BQ = S::BQ, BK = S::BK, SD = S::SD, NTHR = S::kThreads;
   constexpr int KC = D / 16;           // k chunks of the head dim
   constexpr int NT = BK / 8;           // 8-column tiles of S
-  constexpr int NO = D / 8;            // 8-column tiles of the output
+  constexpr int NO = S::CW / 8;        // 8-column tiles of the warp's output
   extern __shared__ uint4 smem_tc[];
   bf16* qs = reinterpret_cast<bf16*>(smem_tc);   // [BQ][SD]
   bf16* ks = qs + BQ * SD;                        // [2][BK][SD]
@@ -292,32 +310,57 @@ flash_fwd_kernel_tc(const Args a) {
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int gid = lane >> 2, tig = lane & 3;
+  const int wr = warp % (BQ / 16);     // the warp's 16 q rows
+  const int col0 = (warp / (BQ / 16)) * S::CW;    // its output columns
   const int q_start = blockIdx.x * BQ;
   const int h = blockIdx.y;
   const int bi = blockIdx.z;
   const int kvh = h / (a.hq / a.hkv);
   const int q_end = min(q_start + BQ, a.sq);
-  const int w_row0 = q_start + warp * 16;         // the warp's first q row
+  const int w_row0 = q_start + wr * 16;           // the warp's first q row
   const bf16* qg = static_cast<const bf16*>(a.q) + bi * a.st[0][0] +
                    h * a.st[0][2];
-  const bf16* kg = static_cast<const bf16*>(a.k) + bi * a.st[1][0] +
-                   kvh * a.st[1][2];
-  const bf16* vg = static_cast<const bf16*>(a.v) + bi * a.st[2][0] +
-                   kvh * a.st[2][2];
+  // The causal walk: K4's kv rows (operands 1, 2), or K3's chunk rows
+  // (operands 3, 4), whose indices are the chunk-local q indices.
+  constexpr int KO = kChunk ? 3 : 1, VO = kChunk ? 4 : 2;
+  const bf16* kg = static_cast<const bf16*>(kChunk ? a.k2 : a.k) +
+                   bi * a.st[KO][0] + kvh * a.st[KO][2];
+  const bf16* vg = static_cast<const bf16*>(kChunk ? a.v2 : a.v) +
+                   bi * a.st[VO][0] + kvh * a.st[VO][2];
+  const int kv_rows = kChunk ? a.sq : a.skv;
+  // K3 walks the row's valid cache rows first, [0, min(cache_len[b],
+  // split)) of operands 1, 2; the rows past them are zero-filled, never
+  // read, and tiles wholly past them are not walked. The two walks start
+  // at their own row 0, so no tile straddles split.
+  const int cache_rows = kChunk ? max(0, min(a.cache_len[bi], a.skv)) : 0;
+  const bf16* kcache = static_cast<const bf16*>(a.k) + bi * a.st[1][0] +
+                       kvh * a.st[1][2];
+  const bf16* vcache = static_cast<const bf16*>(a.v) + bi * a.st[2][0] +
+                       kvh * a.st[2][2];
+  const int n_cache = (cache_rows + BK - 1) / BK;
 
   auto load_rows = [](bf16* dst, const bf16* src, long long rstride,
                       int row0, int rows, int limit) {
-    skt_mma::cp_async_rows<D, SD, kThreads>(dst, src, rstride, row0, rows,
-                                      limit);
+    skt_mma::cp_async_rows<D, SD, NTHR>(dst, src, rstride, row0, rows,
+                                        limit);
+  };
+  // K and V of walk tile t into buffer buf.
+  auto load_tile = [&](int t, int buf) {
+    bf16* kd = ks + buf * BK * SD;
+    bf16* vd = vs + buf * BK * SD;
+    if (t < n_cache) {
+      load_rows(kd, kcache, a.st[1][1], t * BK, BK, cache_rows);
+      load_rows(vd, vcache, a.st[2][1], t * BK, BK, cache_rows);
+    } else {
+      load_rows(kd, kg, a.st[KO][1], (t - n_cache) * BK, BK, kv_rows);
+      load_rows(vd, vg, a.st[VO][1], (t - n_cache) * BK, BK, kv_rows);
+    }
   };
 
-  const int k_stop = a.causal ? min(q_end, a.skv) : a.skv;
-  const int n_tiles = (k_stop + BK - 1) / BK;
+  const int k_stop = a.causal ? min(q_end, kv_rows) : kv_rows;
+  const int n_tiles = n_cache + (k_stop + BK - 1) / BK;
   load_rows(qs, qg, a.st[0][1], q_start, BQ, a.sq);
-  if (n_tiles > 0) {
-    load_rows(ks, kg, a.st[1][1], 0, BK, a.skv);
-    load_rows(vs, vg, a.st[2][1], 0, BK, a.skv);
-  }
+  if (n_tiles > 0) load_tile(0, 0);
   skt_mma::cp_async_commit();
 
   float o[NO][4];
@@ -334,13 +377,12 @@ flash_fwd_kernel_tc(const Args a) {
 
   for (int t = 0; t < n_tiles; ++t) {
     const int buf = t & 1;
-    const int k_start = t * BK;
-    if (t + 1 < n_tiles) {             // next tile loads during this one
-      load_rows(ks + (buf ^ 1) * BK * SD, kg, a.st[1][1], k_start + BK, BK,
-                a.skv);
-      load_rows(vs + (buf ^ 1) * BK * SD, vg, a.st[2][1], k_start + BK, BK,
-                a.skv);
-    }
+    const bool cache_tile = t < n_cache;
+    // The tile's first row in its operand, and the rows valid there.
+    const int k_start = (cache_tile ? t : t - n_cache) * BK;
+    const int limit = cache_tile ? cache_rows : kv_rows;
+    const bool causal = a.causal && !cache_tile;
+    if (t + 1 < n_tiles) load_tile(t + 1, buf ^ 1);  // during this tile
     skt_mma::cp_async_commit();
     skt_mma::cp_async_wait<1>();
     __syncthreads();
@@ -349,11 +391,11 @@ flash_fwd_kernel_tc(const Args a) {
 #pragma unroll
         for (int kc = 0; kc < KC; ++kc)
           skt_mma::ldmatrix_x4(
-              qf[kc], skt_mma::a_frag_addr(qs, SD, warp * 16, kc * 16, lane));
+              qf[kc], skt_mma::a_frag_addr(qs, SD, wr * 16, kc * 16, lane));
       }
     }
     // A warp whose rows all lie above this tile (causal) skips it.
-    const bool live = !a.causal || k_start <= w_row0 + 15;
+    const bool live = !causal || k_start <= w_row0 + 15;
     if (live) {
       const bf16* kt = ks + buf * BK * SD;
       const bf16* vt = vs + buf * BK * SD;
@@ -370,7 +412,7 @@ flash_fwd_kernel_tc(const Args a) {
           for (int x = 0; x < 4; ++x) af[x] = qf[kc][x];
         } else {
           skt_mma::ldmatrix_x4(
-              af, skt_mma::a_frag_addr(qs, SD, warp * 16, kc * 16, lane));
+              af, skt_mma::a_frag_addr(qs, SD, wr * 16, kc * 16, lane));
         }
 #pragma unroll
         for (int np = 0; np < NT / 2; ++np) {
@@ -383,8 +425,8 @@ flash_fwd_kernel_tc(const Args a) {
       }
       // Scores in log2 units; masked pairs are -inf (their p is exactly
       // 0, as exp(DEFAULT_MASK_VALUE - m) is in the reference).
-      const bool masked = k_start + BK > a.skv ||
-                          (a.causal && k_start + BK - 1 > w_row0);
+      const bool masked = k_start + BK > limit ||
+                          (causal && k_start + BK - 1 > w_row0);
       float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
       for (int n = 0; n < NT; ++n)
@@ -394,7 +436,7 @@ flash_fwd_kernel_tc(const Args a) {
           if (masked) {
             const int kj = k_start + n * 8 + 2 * tig + (e & 1);
             const int qi = w_row0 + gid + 8 * (e >> 1);
-            if (kj >= a.skv || (a.causal && kj > qi)) x = -INFINITY;
+            if (kj >= limit || (causal && kj > qi)) x = -INFINITY;
           }
           s[n][e] = x;
           mx[e >> 1] = fmaxf(mx[e >> 1], x);
@@ -432,10 +474,11 @@ flash_fwd_kernel_tc(const Args a) {
         skt_mma::acc_to_a_split3(s[2 * kk], s[2 * kk + 1], p3[0], p3[1],
                                  p3[2]);
 #pragma unroll
-        for (int dp = 0; dp < D / 16; ++dp) {
+        for (int dp = 0; dp < S::CW / 16; ++dp) {
           uint32_t bfr[4];
           skt_mma::ldmatrix_x4_trans(
-              bfr, skt_mma::bt_frag_addr(vt, SD, kk * 16, dp * 16, lane));
+              bfr,
+              skt_mma::bt_frag_addr(vt, SD, kk * 16, col0 + dp * 16, lane));
 #pragma unroll
           for (int part = 0; part < 3; ++part) {
             skt_mma::mma_16816(o[2 * dp], p3[part], bfr[0], bfr[1]);
@@ -461,27 +504,27 @@ flash_fwd_kernel_tc(const Args a) {
     bf16* orow = out + bi * a.st[5][0] + qi * a.st[5][1] + h * a.st[5][2];
 #pragma unroll
     for (int n = 0; n < NO; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(orow + n * 8 + 2 * tig) =
+      *reinterpret_cast<__nv_bfloat162*>(orow + col0 + n * 8 + 2 * tig) =
           __floats2bfloat162_rn(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
-    if (tig == 0) {
+    if (!kChunk && tig == 0 && col0 == 0) {
       const float m = m2[r] == -INFINITY ? kMaskValue : m2[r] * skt_mma::kLn2;
       a.lse[((long long)bi * a.hq + h) * a.sq + qi] = m + logf(l_safe);
     }
   }
 }
 
-template <int D>
+template <int D, bool kChunk>
 cudaError_t launch_tc(const Args& a, cudaStream_t stream) {
   using S = TcShape<D>;
   const size_t smem = (size_t)S::kSmemElems * sizeof(__nv_bfloat16);
-  auto kernel = flash_fwd_kernel_tc<D>;
+  auto kernel = flash_fwd_kernel_tc<D, kChunk>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
   const dim3 grid((a.sq + S::BQ - 1) / S::BQ, a.hq, a.b);
-  kernel<<<grid, kThreads, smem, stream>>>(a);
+  kernel<<<grid, S::kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -504,19 +547,11 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 template <bool kChunk>
 cudaError_t dispatch(const Args& a, int d, int dtype, cudaStream_t s) {
   if (a.b == 0 || a.sq == 0) return cudaSuccess;
-  if (dtype == 0) {
-    if constexpr (!kChunk) {           // bf16 K4: the tensor-core body
-      switch (d) {
-        case 64: return launch_tc<64>(a, s);
-        case 128: return launch_tc<128>(a, s);
-        case 256: return launch_tc<256>(a, s);
-      }
-    } else {                           // bf16 K3
-      switch (d) {
-        case 64: return launch<__nv_bfloat16, 64, true>(a, s);
-        case 128: return launch<__nv_bfloat16, 128, true>(a, s);
-        case 256: return launch<__nv_bfloat16, 256, true>(a, s);
-      }
+  if (dtype == 0) {                    // bf16 K4, K3: the tensor-core body
+    switch (d) {
+      case 64: return launch_tc<64, kChunk>(a, s);
+      case 128: return launch_tc<128, kChunk>(a, s);
+      case 256: return launch_tc<256, kChunk>(a, s);
     }
   } else if (dtype == 1) {
     switch (d) {

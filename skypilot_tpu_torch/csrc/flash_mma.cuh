@@ -1,5 +1,5 @@
 // Tensor-core building blocks of the bf16 flash-attention kernels
-// (flash_fwd.cu: K4; flash_bwd.cu: K5a): cp.async copies into shared
+// (flash_fwd.cu: K4, K3; flash_bwd.cu: K5a, K5b): cp.async copies into shared
 // memory, ldmatrix loads of mma fragments, the m16n8k16 bf16 mma with
 // fp32 accumulators, and the split of fp32 operands into bf16 parts.
 //

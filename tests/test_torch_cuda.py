@@ -297,7 +297,10 @@ def test_flash_chunk_matches_plain(cuda, dtype, hq, hkv, d, sq, split):
     out = fa.flash_attention(q, k, v, cache_len=cache_len, kv_split=split)
     torch.cuda.synchronize()
     assert fa.launch_counts['flash_fwd_chunk'] == before + 1
-    want = fa.flash_chunk_reference(q, k, v, cache_len, split)
+    # Against the plain version's fp32 output, as in
+    # test_flash_fwd_matches_plain: bf16 K3 runs K4's tensor-core body.
+    want = fa.flash_chunk_reference(q.float(), k.float(), v.float(),
+                                    cache_len, split)
     tol, rounding, _ = FLASH_TOL[dtype]
     assert bool(torch.isfinite(out).all())
     assert _flash_err(out, want, rounding) <= tol
@@ -537,11 +540,68 @@ def test_flash_bwd_dkv_tensor_cores_match_plain(cuda, d, g, shape, causal):
         assert _flash_err(got, w, rounding) <= tol * norm
 
 
+@pytest.mark.parametrize('d,g', TC_GEOS)
+@pytest.mark.parametrize('shape,causal', TC_SHAPES)
+def test_flash_bwd_dq_tensor_cores_match_plain(cuda, d, g, shape, causal):
+    from skypilot_tpu_torch.ops import flash_attention as fa
+    b, sq, skv, hq, hkv = _tc_case(d, g, shape, causal)
+    q, k, v = _flash_inputs(torch.bfloat16, b, sq, skv, hq, hkv, d, seed=7)
+    do = _flash_inputs(torch.bfloat16, b, sq, sq, hq, hq, d, seed=8)[0]
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    delta = fa.attention_delta(out, do)
+    before = fa.launch_counts['flash_bwd_dq']
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.launch_counts['flash_bwd_dq'] == before + 1
+    want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do,
+                                            causal=causal)[0]
+    tol, rounding = BWD_TOL[torch.bfloat16]
+    assert dq.dtype == torch.bfloat16 and dq.shape == want.shape
+    assert bool(torch.isfinite(dq).all())
+    norm = max(1.0, want.float().abs().max().item())
+    assert _flash_err(dq, want, rounding) <= tol * norm
+
+
+# K3's chunk shapes: chunk rows, and cache rows (split) that are and are
+# not a multiple of the kernel's kv tile.
+TC_CHUNK_SQ = [1, 17, 64, 256]
+TC_CHUNK_SPLIT = [64, 100, 512, 1792]
+
+
+@pytest.mark.parametrize('d,g', TC_GEOS)
+@pytest.mark.parametrize('sq', TC_CHUNK_SQ)
+@pytest.mark.parametrize('split', TC_CHUNK_SPLIT)
+def test_flash_chunk_tensor_cores_match_plain(cuda, d, g, sq, split):
+    """bf16 K3 against the plain version's fp32 output, with per-row
+    cache lengths 0, mid and full. The cache rows past each row's
+    cache_len hold 1e4: a kernel that reads them unmasked, or masks the
+    wrong rows, moves the output far beyond the tolerance."""
+    from skypilot_tpu_torch.ops import flash_attention as fa
+    hkv = 1 if g == 8 else 2
+    q, k, v = _flash_inputs(torch.bfloat16, 3, sq, split + sq, g * hkv,
+                            hkv, d, seed=12)
+    lens = [0, split // 2 + 1, split]
+    for row, n in enumerate(lens):
+        k[row, n:split] = 1e4
+        v[row, n:split] = 1e4
+    cache_len = torch.tensor(lens, dtype=torch.int32, device='cuda')
+    before = fa.launch_counts['flash_fwd_chunk']
+    out = fa.flash_chunk_attention(q, k[:, split:], v[:, split:],
+                                   k[:, :split], v[:, :split], cache_len)
+    torch.cuda.synchronize()
+    assert fa.launch_counts['flash_fwd_chunk'] == before + 1
+    want = fa.flash_chunk_reference(q.float(), k.float(), v.float(),
+                                    cache_len, split)
+    tol, rounding, _ = FLASH_TOL[torch.bfloat16]
+    assert out.dtype == torch.bfloat16 and bool(torch.isfinite(out).all())
+    assert _flash_err(out, want, rounding) <= tol
+
+
 def test_fp32_inputs_keep_the_cuda_core_kernels(cuda):
-    """fp32 operands still run the CUDA-core K4 and K5a: their results
-    hold the fp32 bounds of the earlier slices (out and lse within 1e-5,
-    dk and dv within 2e-5 of max(1, max |grad|)), which the bf16
-    tensor-core bodies, with bf16 operands, could not."""
+    """fp32 operands still run the CUDA-core K4, K3, K5a and K5b: their
+    results hold the fp32 bounds of the earlier slices (out and lse
+    within 1e-5, gradients within 2e-5 of max(1, max |grad|)), which the
+    bf16 tensor-core bodies, with bf16 operands, could not."""
     from skypilot_tpu_torch.ops import flash_attention as fa
     for d, g, (b, sq, skv, causal) in ((64, 4, (2, 300, 300, True)),
                                        (128, 1, (2, 100, 300, False)),
@@ -557,12 +617,25 @@ def test_fp32_inputs_keep_the_cuda_core_kernels(cuda):
         assert out.dtype == torch.float32
         assert (out - want).abs().max().item() <= 1e-5
         assert (lse - want_lse).abs().max().item() <= 1e-5
-        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse,
-                                            fa.attention_delta(out, do),
+        delta = fa.attention_delta(out, do)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
                                             causal=causal)
-        _, want_dk, want_dv = fa.flash_attention_bwd_reference(
+        dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta,
+                                       causal=causal)
+        want_dq, want_dk, want_dv = fa.flash_attention_bwd_reference(
             q, k, v, out, lse, do, causal=causal)
-        for got, w in ((dk, want_dk), (dv, want_dv)):
+        for got, w in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
             assert got.dtype == torch.float32
             assert (got - w).abs().max().item() <= 2e-5 * max(
                 1.0, w.abs().max().item())
+        # K3 on fp32 operands: a chunk of sq rows against 100 cache rows.
+        split = 100
+        cq, ck, cv = _flash_inputs(torch.float32, 3, sq, split + sq,
+                                   g * hkv, hkv, d, seed=11)
+        cache_len = torch.tensor([0, split // 2 + 1, split],
+                                 dtype=torch.int32, device='cuda')
+        out = fa.flash_attention(cq, ck, cv, cache_len=cache_len,
+                                 kv_split=split)
+        want = fa.flash_chunk_reference(cq, ck, cv, cache_len, split)
+        assert out.dtype == torch.float32
+        assert (out - want).abs().max().item() <= 1e-5

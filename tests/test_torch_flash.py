@@ -65,8 +65,12 @@ def test_flash_fwd_matches_jax_kernel(causal, hq, hkv, b, s, d):
         out.numpy(), rtol=0, atol=0)
 
 
-@pytest.mark.parametrize('hq,hkv', GEOS)
-@pytest.mark.parametrize('s,split,d', [(64, 64, 64), (128, 64, 128)])
+# K3 adds group 4 (hq 8 / hkv 2), d 256, and 40 cache rows: a split
+# that is no multiple of the Hopper kernel's kv tile (the reference
+# takes it: its kv block is then the whole 104 rows).
+@pytest.mark.parametrize('hq,hkv', GEOS + [(8, 2)])
+@pytest.mark.parametrize('s,split,d', [(64, 64, 64), (128, 64, 128),
+                                       (64, 64, 256), (64, 40, 64)])
 @pytest.mark.parametrize('which', ['empty_and_mid', 'mid_and_full'])
 def test_flash_chunk_matches_jax_kernel(hq, hkv, s, split, d, which):
     b = 2

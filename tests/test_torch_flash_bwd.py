@@ -40,10 +40,16 @@ GEOS = [(2, 2), (4, 2)]          # (hq, hkv): MHA and GQA
 
 
 @pytest.mark.parametrize('causal', [True, False])
-@pytest.mark.parametrize('hq,hkv', GEOS)
+# GEOS at d 64 (ids as before), then group 4 (hq 8 / hkv 2) and d 256,
+# where the Hopper dQ and dK/dV kernels change their tiling.
+@pytest.mark.parametrize('hq,hkv,d', [
+    pytest.param(hq, hkv, 64, id=f'{hq}-{hkv}') for hq, hkv in GEOS] + [
+    pytest.param(8, 2, 64, id='8-2'),
+    pytest.param(2, 2, 256, id='2-2-d256'),
+    pytest.param(8, 2, 256, id='8-2-d256')])
 @pytest.mark.parametrize('b', [1, 2])
-def test_plain_backward_matches_jax_grad(causal, hq, hkv, b):
-    s, d = 128, 64
+def test_plain_backward_matches_jax_grad(causal, hq, hkv, d, b):
+    s = 128
     q, k, v, do = _arrays(b * 10 + hq + causal, (b, s, hq, d), (b, s, hkv, d),
                           (b, s, hkv, d), (b, s, hq, d))
 
