@@ -72,8 +72,9 @@ Phases, one JSON line each; any failure exits non-zero:
    eager call of the module's step function from the same state
    (tokens, ring rows and pool bytes equal bit for bit) at horizons 1,
    8 and 32, for K1 on bf16, int8 and int4 pools, K2 on int8 and the
-   gather path on bf16; for K1 bf16, one decode call's ms a step eager
-   and replayed with the device's idle share of each (torch.profiler),
+   gather path on bf16; for K1 bf16 at horizons 1 and 8, one decode
+   call's ms a step eager and replayed with the device's idle share of
+   each (torch.profiler),
    capture seconds a key and the graphs' pool. serve_pinned — the
    ``serve`` requests through ``ModelServer(decode_steps_per_call=4)``.
    decode_audit — ``audit_multistep(4)`` and the engine audit of both
@@ -119,16 +120,17 @@ Phases, one JSON line each; any failure exits non-zero:
    a warm-up replays the warm-up's graphs with no unsanctioned sync.
    The serving front, on the ``serve`` weights, each server on a fresh
    process registry: serve_sched — the SLO scheduler on the paged
-   engine (K1): 16 throughput-tier requests (512-1024-token prompts,
-   128 new tokens) at once, then 8 latency-tier requests (32-64 tokens,
-   16 new) at 0.25 s intervals into the backlog, all streamed; per tier
+   engine (K1): 8 throughput-tier requests (512-1024-token prompts,
+   128 new tokens) at once, then 4 latency-tier requests (32-64 tokens,
+   16 new) at 0.25 s intervals into the backlog, all streamed (half of
+   SCHED_TP and SCHED_LAT: ``reduced``); per tier
    TTFT p50/p90, queue wait and TPOT from ``/metrics?format=json`` and
    per kind the client TTFT and TPOT, beside the same requests with
    every one in the throughput tier; every request brings its count and
-   the latency tier admits 8. serve_sched_slot — the same at half the
-   counts on the slot engine (K4/K3 prefill). sched_shed —
-   ``max_queue_tokens=4096`` and 56 requests of 128 work tokens at
-   once: every refusal a 429 with an integer ``Retry-After`` >= 1,
+   the latency tier admits all of its own. serve_sched_slot — the same
+   at a quarter of the counts on the slot engine (K4/K3 prefill).
+   sched_shed — ``max_queue_tokens=2048`` and 28 requests of 128 work
+   tokens at once (both halved: ``reduced``): every refusal a 429 with an integer ``Retry-After`` >= 1,
    ``skytpu_sched_shed_total`` in the Prometheus text equal to the
    429s, every refused request completing when sent again after its
    ``Retry-After``. sched_drain — 8 streamed requests in flight, then
@@ -144,7 +146,7 @@ Phases, one JSON line each; any failure exits non-zero:
    telemetry_audit — ``audit_telemetry_parity`` on both engines at 7B
    width, depth 2 (0 unsanctioned syncs, 0 steady-state captures,
    equal streams with telemetry off and on), and telemetry_tpot — the
-   ``serve`` requests with telemetry on and off in turns.
+   ``serve`` requests with telemetry on, then off.
    Multi-tenant serving, on the ``serve`` weights: serve_lora — five
    rank-8 adapters written from the seed into a temporary
    ``adapter_dir`` (``adapter_write``); a 4-slot bank on the paged
@@ -182,9 +184,10 @@ Phases, one JSON line each; any failure exits non-zero:
     same params: losses and grad norms agree.
 12. serve_ckpt — gemma-2b (2.51B parameters: tied, sqrt(dim)-scaled
     embeddings, x * (1 + w) norms, GeGLU, 8/1 heads at d 256) written
-    at full width and depth by the port's ``synth.py`` into a temporary
-    directory (``checkpoint_write``: bytes, seconds, depth cut only
-    when the disk is short), served by ``ModelServer(model_path=...)``
+    at full width, depth cut to 9 of 18 layers (``reduced``), by the
+    port's ``synth.py`` into a temporary directory
+    (``checkpoint_write``: bytes, seconds; depth cut further only when
+    the disk is short), served by ``ModelServer(model_path=...)``
     on the paged engine with bf16 KV and K1 (``decode_impl='pallas'``),
     the same 8 requests as ``serve``: load seconds, K1 launches and the
     split plans they ran (the context must be split), TTFT, TPOT,
@@ -199,8 +202,8 @@ Phases, one JSON line each; any failure exits non-zero:
     tokens absent from the batch, peak memory; the directory is then
     deleted.
 15. serve_qwen2 — qwen2-7b (7.6B parameters, q/k/v biases, 28/4 heads:
-    group 7) written at full width, served on the paged engine with
-    bf16 KV through K1; full depth unless the disk is short.
+    group 7) written at full width, depth cut to 8 of 28 layers
+    (``reduced``), served on the paged engine with bf16 KV through K1.
 16. moe_int4_check — one mixtral-8x7b MoE layer (``moe.moe_ffn``, int8
     experts, bf16, at 8 and 64 tokens) and llama3-70b's int4 weight
     product (``quantization.qeinsum`` on a ``QuantizedWeight4``, per
@@ -222,6 +225,27 @@ Phases, one JSON line each; any failure exits non-zero:
     ``moe_aux_loss``, non-zero router and expert gradients, K4 twice and
     K5a/K5b once per layer per step; step time, tok/s, ``mfu`` from the
     active parameters, peak memory.
+20. lora_train — LoRA fine-tuning of llama3-8b at full width and depth
+    (32 layers, dim 4096, 32/8 heads, d 128, vocab 128256): a bf16 base
+    from the seed, rank-16 adapters (alpha 32) on q, k, v and o, remat
+    'block', 10 steps of ``Trainer.fit`` on one repeated 2 x 2048 batch:
+    every base leaf bit for bit its copy from before training (in pinned
+    host memory, compared as bytes), every ``b`` factor moved, the loss falling; step
+    time, tok/s, ``mfu``, peak memory, K4/K5a/K5b launches a step,
+    adapter and optimizer bytes. lora_remat — the same model under
+    'block', 'attn' and 'dots', 5 steps each: peak memory, step time,
+    K4 launches a step (L under 'attn', 2L otherwise); at depth 2
+    (``reduced``) one ``value_and_grad`` under each policy equals
+    'none' bit for bit. lora_serve — the trained adapter written by
+    ``multilora.save_adapter`` into a temporary ``adapter_dir`` and
+    served on a paged llama3-8b engine with a bank (K1 in graphs) beside
+    base rows: the base rows equal a bankless engine's bit for bit, the
+    share of adapter tokens equal to the merged model's is reported;
+    fp32 at depth 2: logits within 1e-3 of the merged model's and greedy
+    tokens equal on both engines. lora_cli — ``python -m
+    skypilot_tpu_torch.train``'s ``main`` with ``--lora-rank 16
+    --adapter-out`` at depth 2 on a seeded corpus: train, resume from
+    ``LATEST``, load the adapter back.
 The ``reference`` phase (9) also serves small fp32 Gemma- and
 Qwen2-family models (head_dim 64, random non-zero norms and biases), a
 4-expert top-2 MoE at ``moe_capacity_factor`` 0.5 (decode drops
@@ -229,18 +253,20 @@ choices) and an int4-weight model (``quantize='int4'``, int4 KV) from a
 checkpoint directory on the card and on the CPU: greedy tokens equal on
 the paged (K1) and slot (K4, K3) engines.
 
-Then the ``kernels`` line (K3's entry also times the long shape, K5b's
-the 7B shape, under ``times_by_shape``) and, last, ``{"ok": true,
+Then the ``kernels`` line (K3's entry also times the long shape, K4's,
+K5a's and K5b's the training shapes of llama3-1b and llama3-8b and the
+7B shape, under ``times_by_shape``) and, last, ``{"ok": true,
 "device": ...}``.
 Every launch count in the ``kernels`` line is from a main-path phase
 (5-8, 10, 17-19, ``serve_slot_spec`` for K3 at sq = 5, ``kv_probe``
 for K6, ``kv_handoff``, ``kv_handoff_slot`` and ``kv_checkpoint``, and
 ``serve_sched``, ``serve_sched_slot``, ``sched_shed``, ``sched_drain``,
-``disagg_relay``, ``serve_lora`` and ``serve_lora_slot``),
+``disagg_relay``, ``serve_lora`` and ``serve_lora_slot``, and
+``lora_train``, ``lora_remat`` and ``lora_serve``),
 with the counts set to 0 just before each; ``launches_by_path`` splits a kernel's count by
 phase. Launches made to compare or time a kernel do not count.
 Phases 12-15 report their own launches on their own lines.
-K4's count adds its two paths (``serve_slot`` prefill and ``train``).
+K4's count adds its paths (slot prefill and every training phase).
 
 Run with no arguments: ``python3 chip_smoke.py``. Imports nothing of
 JAX and nothing of the ``skypilot_tpu`` package.
@@ -248,6 +274,7 @@ JAX and nothing of the ``skypilot_tpu`` package.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import os
@@ -289,10 +316,26 @@ _T0 = time.monotonic()
 
 def emit(obj) -> None:
     """One JSON line; a phase's line carries ``t_s``, the seconds since
-    the script started, so a run shows where its time went."""
+    the script started, and ``cuda_alloc_gb``, the card memory held by
+    live tensors when it was printed, so a run shows where its time and
+    its memory went."""
     if 'phase' in obj:
         obj = {**obj, 't_s': round(time.monotonic() - _T0, 1)}
+        torch = sys.modules.get('torch')
+        if torch is not None and torch.cuda.is_initialized():
+            obj['cuda_alloc_gb'] = round(torch.cuda.memory_allocated() / 1e9,
+                                         3)
     print(json.dumps(obj), flush=True)
+
+
+def _release(torch) -> None:
+    """Free what the phase let go of: engines, servers and trainers hold
+    reference cycles (CUDA graphs, callbacks, threads' closures) that
+    only the cycle collector reclaims, so their card memory would
+    otherwise stay allocated until some later collection, and the next
+    full-width model would not fit."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 class SmokeError(RuntimeError):
@@ -705,7 +748,7 @@ def phase_kernel_times(torch, page):
             'bound_ms': bound2, 'bound_by': by2, 'bytes': b2,
             'flops': flops2}
         del ins, q, pk, pv, ks, vs
-        torch.cuda.empty_cache()
+        _release(torch)
     pa.launch_counts.update(before)      # timing launches do not count
     for name, r in results.items():
         emit({'phase': 'kernel_time', 'kernel': name,
@@ -824,7 +867,7 @@ def phase_flash_checks(torch):
                        'cache_len': lens, 'poison_past_cache_len': poison,
                        **geo})
             del q, k, v, out, want
-    torch.cuda.empty_cache()
+    _release(torch)
     fa.launch_counts.update(before)      # comparison launches do not count
     return worst
 
@@ -918,7 +961,7 @@ def phase_flash_times(torch):
               'achieved_gb_s': moved / (ms * 1e-3) / 1e9,
               'roofline_share': bound_ms / ms})
         del sets, lib
-        torch.cuda.empty_cache()
+        _release(torch)
     fa.launch_counts.update(before)      # timing launches do not count
     fa.chunk_launches_by_sq.clear()
     return results
@@ -943,6 +986,7 @@ TOL_AUTOGRAD = 1e-2           # bf16 gradients of the K4/K5 Function against
                               # of one bf16 rounding of each gradient
 TRAIN_ATTN = dict(b=8, sq=2048, hq=32, hkv=8, d=64)     # llama3-1b, batch 8
 BIG_ATTN = dict(b=1, sq=2048, hq=32, hkv=32, d=128)     # llama2-7b, one row
+LORA_ATTN = dict(b=2, sq=2048, hq=32, hkv=8, d=128)     # llama3-8b, batch 2
 
 
 def _grad_err(got, want, rounding):
@@ -1025,7 +1069,7 @@ def phase_flash_bwd_checks(torch):
                         f'(d {d}, {hq}/{hkv} heads, {b}x{sq}x{skv}, '
                         f'causal {causal}, {name})')
         del q, k, v, do, out, lse, delta, got, want, dq, dk, dv, sdpa
-        torch.cuda.empty_cache()
+        _release(torch)
     fa.launch_counts.update(before)      # comparison launches do not count
     return worst
 
@@ -1083,7 +1127,7 @@ def phase_autograd_check(torch):
     require(ok, f'flash autograd disagrees with autograd through the plain '
                 f'forward: {errs}, launches {launched}')
     del q, k, v, do, got, want
-    torch.cuda.empty_cache()
+    _release(torch)
 
 
 def _sdpa_backward(torch, F, q, k, v, do):
@@ -1101,8 +1145,8 @@ def _sdpa_backward(torch, F, q, k, v, do):
 
 
 def phase_flash_bwd_times(torch):
-    """K4, K5a and K5b at the training shape and the 7B shape (bf16,
-    causal), each beside its bound (bf16 operands: the tensor-core peak),
+    """K4, K5a and K5b at the training shape, the 7B shape and the
+    llama3-8b LoRA training shape (bf16, causal), each beside its bound (bf16 operands: the tensor-core peak),
     the plain version's time (for K5: the plain backward, which computes
     dq, dk and dv together) and one library call (K4: the SDPA forward;
     K5: the SDPA backward, all three gradients)."""
@@ -1111,7 +1155,8 @@ def phase_flash_bwd_times(torch):
     el = 2                                       # bf16 bytes
     before = dict(fa.launch_counts)
     results = {}
-    for label, t in (('train', TRAIN_ATTN), ('7b', BIG_ATTN)):
+    for label, t in (('train', TRAIN_ATTN), ('7b', BIG_ATTN),
+                     ('8b_train', LORA_ATTN)):
         b, s, hq, hkv, d = t['b'], t['sq'], t['hq'], t['hkv'], t['d']
         q, k, v = _flash_inputs(torch, b, s, s, hq, hkv, d, torch.bfloat16,
                                 seed=31)
@@ -1165,7 +1210,7 @@ def phase_flash_bwd_times(torch):
                   'achieved_tflop_s': flops / (ms * 1e-3) / 1e12,
                   'roofline_share': bound_ms / ms})
         del q, k, v, do, out, lse, delta, sdpa_fwd, rows
-        torch.cuda.empty_cache()
+        _release(torch)
     fa.launch_counts.update(before)      # timing launches do not count
     return results
 
@@ -1222,7 +1267,7 @@ def phase_weight_path(torch):
           'int8_minus_bf16_ms': (times['int8'] + times['int8_again']
                                  - times['bf16'] - times['bf16_again']) / 2})
     del tree, qtree, layer
-    torch.cuda.empty_cache()
+    _release(torch)
 
 
 # ---------------------------------------------------------------- kv_probe
@@ -1323,7 +1368,7 @@ def phase_kv_probe(torch, page):
               'achieved_gb_s': moved / (ms * 1e-3) / 1e9,
               'roofline_share': bound_ms / ms})
         del q1, q, q4, pk, pv, ks, vs, table, lens, got
-        torch.cuda.empty_cache()
+        _release(torch)
     pa.launch_counts.update(before)      # comparison launches do not count
     emit({'phase': 'kv_probe', 'model': 'llama2-7b', 'layers': L,
           'slots': SLOTS, 'context': CTX, 'pools': ['bf16', 'int8', 'int4'],
@@ -1663,7 +1708,7 @@ def phase_serve(torch, seed, phase, keep_params=False, model='llama2-7b',
     _attention_check(torch, eng, seed, phase)
     params = eng.params if keep_params else None
     del eng, srv
-    torch.cuda.empty_cache()
+    _release(torch)
     return launches, params
 
 
@@ -1726,7 +1771,7 @@ def phase_serve_slot(torch, seed, params=None, phase='serve_slot',
     finally:
         srv.stop()
     del eng, srv
-    torch.cuda.empty_cache()
+    _release(torch)
     return k4, k3
 
 
@@ -1780,12 +1825,15 @@ def phase_decode_variants(torch, seed, params):
               'peak_mem_gb': torch.cuda.max_memory_allocated() / 1e9,
               **eng.graph_stats(), 'kv_pool': eng.kv_pool_stats()})
         del eng, done
-        torch.cuda.empty_cache()
+        _release(torch)
     return out
 
 
 # -------------------------------------------------------------------- 8b
 GRAPH_HORIZONS = (1, 8, 32)
+GRAPH_TIMED_HORIZONS = (1, 8)  # decode_graphs' eager vs replay timings:
+                               # the profiled eager call of 32 steps cost
+                               # ~45 s of the time limit
 GRAPH_N_PAGES = 40             # the check engines' pools: the 8 prompts
                                # plus 32 decode rows take 29 pages
 GRAPH_REPS = {'replay': 5, 'eager': 1}     # an eager call of 32 steps: ~3 s
@@ -1897,18 +1945,21 @@ def phase_decode_graphs(torch, seed, params, weights, cases, timed=False):
                     and res['pool_equal'],
                     f'graph replay differs from the eager step ({impl}, '
                     f'{kv}, horizon {h}): {res}')
-            if timed:
+            if timed and h in GRAPH_TIMED_HORIZONS:
                 timings.append(_graph_timing(torch, eng, h, res['P']))
         stats = eng.graph_stats()
         emit({'phase': 'decode_graphs', 'check': 'graph_vs_eager',
               'model': eng.cfg.name, 'weights': weights,
               'kv_cache_dtype': kv, 'decode_impl': impl,
               'results': checks, 'timings': timings, **stats,
+              'reduced': ({'timed_horizons': [list(GRAPH_HORIZONS),
+                                              list(GRAPH_TIMED_HORIZONS)]}
+                          if timed else None),
               'capture_s_per_key': stats['graph_capture_s']
               / max(1, stats['graph_captures']),
               'peak_mem_gb': torch.cuda.max_memory_allocated() / 1e9})
         del eng
-        torch.cuda.empty_cache()
+        _release(torch)
     graphs._restore(saved)
 
 
@@ -1935,7 +1986,7 @@ def phase_decode_audits(torch):
               **report.as_dict()})
         require(report.ok() and report.captures[0] > 0,
                 f'{report.name}: {report.violations()}')
-        torch.cuda.empty_cache()
+        _release(torch)
     graphs._restore(saved)
 
 
@@ -2069,7 +2120,7 @@ def phase_spec_check(torch, seed):
               'model': cfg.name, 'reduced': reduced, 'engine': kind,
               'speculate_k': SPEC_K, 'streams_equal': True, 'runs': runs})
     del params
-    torch.cuda.empty_cache()
+    _release(torch)
     cfg = _spec_cfg(torch, torch.bfloat16)
     params = llama.init_params(cfg, seed, device='cuda')
     for kind, kv in (('paged', 'bf16'), ('paged', 'int8'),
@@ -2093,13 +2144,13 @@ def phase_spec_check(torch, seed):
                     f'replayed verify differs from the eager round ({kind}, '
                     f'{kv}, rounds {rounds}): {res}')
             del eng
-            torch.cuda.empty_cache()
+            _release(torch)
         emit({'phase': 'spec_check', 'check': 'replay_vs_eager',
               'model': cfg.name, 'reduced': reduced, 'engine': kind,
               'kv_cache_dtype': kv, 'speculate_k': SPEC_K,
               'results': results})
     del params
-    torch.cuda.empty_cache()
+    _release(torch)
     worst = _check_k3_verify(torch)
     graphs._restore(saved)
     return worst
@@ -2330,7 +2381,7 @@ def phase_serve_spec(torch, seed, params, phase, kv_cache='paged',
         finally:
             srv.stop()
         del eng, srv
-        torch.cuda.empty_cache()
+        _release(torch)
     same = sum(a == b for x, y in zip(toks[SPEC_K], toks[0])
                for a, b in zip(x, y))
     total = sum(len(x) for x in toks[0])
@@ -2369,7 +2420,7 @@ def phase_spec_audit(torch):
         require(report.ok() and report.captures[0] > 0
                 and report.spec_syncs == report.dispatches > 0,
                 f'{report.name}: {report.violations()}')
-        torch.cuda.empty_cache()
+        _release(torch)
     graphs._restore(saved)
 
 
@@ -2463,7 +2514,7 @@ def _handoff_case(torch, make, prompts, kernel_keys):
     src_steps = src.decode_substeps
     src_calls = dict(getattr(src, 'prefill_calls', {}))
     del src, snap
-    torch.cuda.empty_cache()
+    _release(torch)
     require(_poison_kv(ref) >= 2, 'no KV tensor to poison')
     ingest_ms, new = [], []
     for blob in blobs:
@@ -2492,7 +2543,7 @@ def _handoff_case(torch, make, prompts, kernel_keys):
             f'other kernels launched on the handoff path: {counts}')
     stats = ref.kv_pool_stats()
     del ref
-    torch.cuda.empty_cache()
+    _release(torch)
     return {'streams_equal': True, 'receiver_kv_poisoned': True,
             'requests': len(got),
             'exported_after_tokens': 1 + KV_DECODE_FIRST,
@@ -2662,7 +2713,7 @@ def phase_kv_checkpoint(torch, seed, params):
             lines[name] = line
             cfg = eng.cfg
             del eng, srv
-            torch.cuda.empty_cache()
+            _release(torch)
     cold, warm = lines['cold'], lines['warm']
     key = 'paged_decode_attention[bf16]'
     k1 = warm['kernel_launches'].get(key, 0)
@@ -2715,7 +2766,7 @@ def phase_kv_audit(torch):
                 and report.landed_rows > 0
                 and (what != 'warm' or report.prefix_hits > 0),
                 f'{report.name}: {report.violations()}')
-        torch.cuda.empty_cache()
+        _release(torch)
     graphs._restore(saved)
 
 
@@ -2724,8 +2775,10 @@ SCHED_TP = (16, (512, 1024), 128)     # throughput tier: n, prompt lens, new
 SCHED_LAT = (8, (32, 64), 16)         # latency tier: n, prompt lens, new
 SCHED_LAT_GAP_S = 0.25                # latency arrivals, one each 0.25 s
 SCHED_LAT_START_S = 0.5               # ... after the throughput backlog
-SHED_BOUND = 4096                     # sched_shed's max_queue_tokens
-SHED_FLOOD = 56                       # sched_shed's requests, all at once
+SHED_BOUND = 2048                     # sched_shed's max_queue_tokens
+SHED_FLOOD = 28                       # sched_shed's requests, all at once
+SHED_REDUCED = {'max_queue_tokens': [4096, SHED_BOUND],
+                'flood': [56, SHED_FLOOD]}    # halved for the time limit
 SHED_PROMPT, SHED_NEW = 16, 112       # each: 128 work tokens
 DRAIN_NEW = 128                       # sched_drain's new tokens a request
 
@@ -2939,8 +2992,9 @@ def phase_serve_sched(torch, seed, params, kv_cache='paged',
         finally:
             srv.stop()
         del eng, srv
-        torch.cuda.empty_cache()
+        _release(torch)
     emit({'phase': phase, 'card': card, 'model': 'llama2-7b',
+          'reduced': {'requests_divided_by': scale} if scale > 1 else None,
           'kv_cache': kv_cache, 'kv_cache_dtype': 'bf16', 'max_batch': 8,
           'throughput_requests': [n_tp, list(SCHED_TP[1]), SCHED_TP[2]],
           'latency_requests': [n_lat, list(SCHED_LAT[1]), SCHED_LAT[2]],
@@ -3034,7 +3088,8 @@ def phase_sched_shed(torch, seed, params):
         retries = [int(r[1]) for r in refusals]
         emit({'phase': 'sched_shed', 'card': _card_label(),
               'model': 'llama2-7b', 'max_queue_tokens': SHED_BOUND,
-              'requests': SHED_FLOOD, 'work_tokens_each':
+              'requests': SHED_FLOOD, 'reduced': SHED_REDUCED,
+              'work_tokens_each':
                   SHED_PROMPT + SHED_NEW,
               'refused_429': len(refusals), 'shed_total_prometheus':
                   shed_series, 'retry_after_s': sorted(retries),
@@ -3044,7 +3099,7 @@ def phase_sched_shed(torch, seed, params):
     finally:
         srv.stop()
     del eng, srv
-    torch.cuda.empty_cache()
+    _release(torch)
     return launches
 
 
@@ -3137,7 +3192,7 @@ def phase_sched_drain(torch, seed, params):
         finally:
             srv.stop()
         del eng, srv
-        torch.cuda.empty_cache()
+        _release(torch)
         srv, port = _sched_server(params, seed, checkpoint_path=path)
         try:
             hits0 = srv.engine.alloc.prefix_hits
@@ -3158,7 +3213,7 @@ def phase_sched_drain(torch, seed, params):
             warm_boot = srv.warm_boot
         finally:
             srv.stop()
-        torch.cuda.empty_cache()
+        _release(torch)
     require(warm_boot is not None and warm_boot['warmed_rows'] >= KV_PREFIX,
             f'warm boot landed {warm_boot}')
     require(hits >= len(prompts), f'{hits} prefix hits for {len(prompts)} '
@@ -3175,6 +3230,9 @@ def phase_sched_drain(torch, seed, params):
     return launches
 
 
+TELEMETRY_TURNS = ('on', 'off')   # telemetry_tpot's servers, in turns
+
+
 def phase_telemetry_audit(torch, seed, params):
     """Telemetry costs nothing at the device boundary:
     ``audit_telemetry_parity`` on both engines at llama2-7b's width,
@@ -3182,7 +3240,7 @@ def phase_telemetry_audit(torch, seed, params):
     sync, no steady-state capture, the same captures and the same
     streams bit for bit with telemetry off and on); then the ``serve``
     requests at full depth on a server with telemetry on and one with it
-    off (``SKYTPU_TELEMETRY=0``), in turns (on, off, on, off): the served
+    off (``SKYTPU_TELEMETRY=0``), in turns (TELEMETRY_TURNS): the served
     TPOT and TTFT of each."""
     from skypilot_tpu_torch.analysis import audit
     from skypilot_tpu_torch.inference import graphs
@@ -3196,10 +3254,10 @@ def phase_telemetry_audit(torch, seed, params):
         require(report.ok() and report.streams_equal
                 and report.captures_by_mode[0] > 0,
                 f'{report.name}: {report.violations()}')
-        torch.cuda.empty_cache()
+        _release(torch)
     graphs._restore(saved)
     served = {'on': [], 'off': []}
-    for mode in ('on', 'off', 'on', 'off'):
+    for mode in TELEMETRY_TURNS:
         old = os.environ.get('SKYTPU_TELEMETRY')
         os.environ['SKYTPU_TELEMETRY'] = '1' if mode == 'on' else '0'
         try:
@@ -3223,11 +3281,11 @@ def phase_telemetry_audit(torch, seed, params):
                                  'wall_s': wall})
         finally:
             srv.stop()
-        torch.cuda.empty_cache()
+        _release(torch)
     emit({'phase': 'telemetry_tpot', 'card': _card_label(),
           'model': 'llama2-7b', 'requests': len(PROMPT_LENS),
-          'new_tokens': N_NEW, 'order': ['on', 'off', 'on', 'off'],
-          **served})
+          'new_tokens': N_NEW, 'order': list(TELEMETRY_TURNS),
+          'reduced': {'turns': [4, len(TELEMETRY_TURNS)]}, **served})
 
 
 def _relay_streams(port, prompts, headers=None):
@@ -3346,7 +3404,7 @@ def phase_disagg_relay(torch, seed, params):
         for srv, _ in servers:
             srv.stop()
     del servers
-    torch.cuda.empty_cache()
+    _release(torch)
     return launches
 
 
@@ -3648,7 +3706,7 @@ def _train_breakdown(torch, trainer, state, batch, step_s):
         grads, state.opt_state, state.params), 3, n_warm=1)
     cfg, (b, s) = trainer.cfg, batch['inputs'].shape
     del grads, state
-    torch.cuda.empty_cache()
+    _release(torch)
     gen = torch.Generator(device='cuda').manual_seed(41)
     logits = torch.randn((b, s, cfg.vocab_size), generator=gen,
                          device='cuda').requires_grad_(True)
@@ -3663,7 +3721,7 @@ def _train_breakdown(torch, trainer, state, batch, step_s):
         return torch.autograd.grad(loss, logits), (hits * mask).sum()
     ce_ms = _cuda_ms(torch, loss_tail, 3, n_warm=1)
     del logits
-    torch.cuda.empty_cache()
+    _release(torch)
     return {'device_ms_by_class': device_ms if busy else 'not measured',
             'top_kernels_ms_calls_class_name': sorted(kernels,
                                                       reverse=True)[:20],
@@ -3693,7 +3751,7 @@ def phase_train(torch, seed, times):
                                            seed),
                              load_tokenizer(None, cfg.vocab_size))
     batch = TRAIN_BATCH
-    torch.cuda.empty_cache()
+    _release(torch)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
     trainer = Trainer(cfg, train_config=tc, device='cuda')
@@ -3751,7 +3809,7 @@ def phase_train(torch, seed, times):
           'seq': TRAIN_SEQ, 'step_s_median': step_s,
           'attn_kernel_ms_per_step': kernel_ms, **breakdown})
     del trainer, state, log
-    torch.cuda.empty_cache()
+    _release(torch)
     return k4, k5a, k5b
 
 
@@ -3807,6 +3865,11 @@ def phase_train_reference(torch, seed):
 
 # ---------------------------------------------------------------- 12-15
 CKPT_DISK_MARGIN = 4e9         # free bytes kept on the checkpoint's disk
+# Depths the synthetic checkpoints are written at (full width): half of
+# gemma-2b's 18 and 8 of qwen2-7b's 28 layers keep chip_smoke.py inside
+# its time limit; the load path, the families' layers and every kernel
+# at their geometries run all the same.
+CKPT_LAYERS = {'gemma-2b': 9, 'qwen2-7b': 8}
 CKPT_TRAIN = dict(batch=2, seq=2048, steps=2)
 
 
@@ -3819,12 +3882,13 @@ def _checkpoint_bytes(cfg):
                for k, shape in weights.hf_shapes(cfg).items())
 
 
-def _synthetic_checkpoint(torch, cfg, seed, extra_bytes=0):
+def _synthetic_checkpoint(torch, cfg, seed, extra_bytes=0, n_layers=None):
     """``cfg`` written by the port's ``synth.py`` into a new temporary
-    directory at full width, and at full depth unless the disk's free
-    bytes (less CKPT_DISK_MARGIN and ``extra_bytes``, room for what the
-    phase writes beside it) cannot hold it: then depth only is cut.
-    Returns (path, the config written, a JSON dict of the write)."""
+    directory at full width, at the depth ``n_layers`` (full depth when
+    None) unless the disk's free bytes (less CKPT_DISK_MARGIN and
+    ``extra_bytes``, room for what the phase writes beside it) cannot
+    hold it: then depth only is cut further. Returns (path, the config
+    written, a JSON dict of the write)."""
     import dataclasses
     import shutil
     import tempfile
@@ -3833,13 +3897,18 @@ def _synthetic_checkpoint(torch, cfg, seed, extra_bytes=0):
     free = shutil.disk_usage(path).free
     room = free - CKPT_DISK_MARGIN - extra_bytes
     written, reduced = cfg, None
-    if _checkpoint_bytes(cfg) > room:
+    if n_layers is not None and n_layers < cfg.n_layers:
+        written = dataclasses.replace(cfg, n_layers=n_layers)
+        reduced = {'n_layers': [cfg.n_layers, n_layers],
+                   'why': "chip_smoke.py's time limit"}
+    if _checkpoint_bytes(written) > room:
         one = dataclasses.replace(cfg, n_layers=1)
         per_layer = _checkpoint_bytes(dataclasses.replace(
             cfg, n_layers=2)) - _checkpoint_bytes(one)
         n = int((room - (_checkpoint_bytes(one) - per_layer)) // per_layer)
         require(n >= 1, f'{cfg.name}: {free} free bytes hold no layer')
-        written = dataclasses.replace(cfg, n_layers=min(n, cfg.n_layers))
+        written = dataclasses.replace(cfg, n_layers=min(
+            n, written.n_layers))
         reduced = {'n_layers': [cfg.n_layers, written.n_layers],
                    'why': f'free disk {free} bytes'}
     t0 = time.monotonic()
@@ -3863,7 +3932,7 @@ def phase_ckpt_int8(torch, seed, path, info):
     require(not os.path.exists(cache), 'int8 cache present before load 1')
     first = None
     for load in (1, 2):
-        torch.cuda.empty_cache()
+        _release(torch)
         torch.cuda.reset_peak_memory_stats()
         eng = PagedInferenceEngine.from_pretrained(
             path, quantize='int8', max_batch=8, max_seq=2048)
@@ -3914,7 +3983,7 @@ def phase_ckpt_int8(torch, seed, path, info):
               'param_bytes': eng._param_bytes, **eng.graph_stats()})
         del eng, done, leaves
     del first
-    torch.cuda.empty_cache()
+    _release(torch)
 
 
 def phase_train_ckpt(torch, seed, path, info):
@@ -3940,7 +4009,7 @@ def phase_train_ckpt(torch, seed, path, info):
         stream = TokenStream(_write_corpus(os.path.join(tmp, 'corpus.txt'),
                                            seed + 2, 20000),
                              load_tokenizer(None, cfg.vocab_size))
-    torch.cuda.empty_cache()
+    _release(torch)
     torch.cuda.reset_peak_memory_stats()
     trainer = tr.Trainer(cfg, device='cuda', train_config=tr.TrainConfig(
         learning_rate=1e-4, warmup_steps=1, total_steps=n + 1))
@@ -3990,21 +4059,23 @@ def phase_train_ckpt(torch, seed, path, info):
           'peak_mem_gb': torch.cuda.max_memory_allocated() / 1e9,
           'kernel_launches': flash_after, 'reduced': info['reduced']})
     del trainer, state, grads, log
-    torch.cuda.empty_cache()
+    _release(torch)
 
 
 def phase_checkpoints(torch, seed):
     """The checkpoint phases: gemma-2b written by the port's synth.py at
-    full width and depth, served from its directory (serve_ckpt: paged,
+    full width, depth cut to CKPT_LAYERS, served from its directory (serve_ckpt: paged,
     bf16 KV, K1; serve_ckpt_slot: K4/K3 at d 256, group 8), loaded int8
     twice (serve_ckpt_int8) and trained (train_ckpt); then qwen2-7b at
-    full width served on the paged engine (serve_qwen2: K1 at group 7).
+    full width, depth cut the same way, served on the paged engine
+    (serve_qwen2: K1 at group 7).
     Each directory is deleted after its phases."""
     import shutil
     from skypilot_tpu_torch.models import configs
     gemma = configs.GEMMA_2B
     path, written, info = _synthetic_checkpoint(
-        torch, gemma, seed, extra_bytes=_checkpoint_bytes(gemma) // 2)
+        torch, gemma, seed, extra_bytes=_checkpoint_bytes(gemma) // 2,
+        n_layers=CKPT_LAYERS['gemma-2b'])
     emit({'phase': 'checkpoint_write', **info})
     try:
         require(written.n_heads // written.n_kv_heads == 8
@@ -4020,7 +4091,8 @@ def phase_checkpoints(torch, seed):
     finally:
         shutil.rmtree(path, ignore_errors=True)
     qwen = configs.QWEN2_7B
-    path, written, info = _synthetic_checkpoint(torch, qwen, seed)
+    path, written, info = _synthetic_checkpoint(
+        torch, qwen, seed, n_layers=CKPT_LAYERS['qwen2-7b'])
     emit({'phase': 'checkpoint_write', **info})
     try:
         require(qwen.n_heads // qwen.n_kv_heads == 7, f'{qwen}')
@@ -4093,7 +4165,7 @@ def phase_moe_int4_check(torch, seed):
     emit({'phase': 'moe_int4_check', 'checks': lines,
           'tol_over_max_abs': TOL_MOE})
     del w, w4
-    torch.cuda.empty_cache()
+    _release(torch)
 
 
 def phase_train_moe(torch, seed):
@@ -4124,7 +4196,7 @@ def phase_train_moe(torch, seed):
         stream = TokenStream(_write_corpus(os.path.join(tmp, 'corpus.txt'),
                                            seed),
                              load_tokenizer(None, cfg.vocab_size))
-    torch.cuda.empty_cache()
+    _release(torch)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
     trainer = tr.Trainer(cfg, train_config=tc, device='cuda')
@@ -4185,7 +4257,7 @@ def phase_train_moe(torch, seed):
             f'other kernels launched on the train_moe path: {flash_after} '
             f'{paged_after}')
     del trainer, state, log
-    torch.cuda.empty_cache()
+    _release(torch)
     return k4, k5a, k5b
 
 
@@ -4243,6 +4315,7 @@ def _write_adapters(cfg, seed, adapter_dir, n=5):
 def _lora_engine(torch, kind, cfg, params, **kw):
     from skypilot_tpu_torch.inference.engine import InferenceEngine
     from skypilot_tpu_torch.inference.paged import PagedInferenceEngine
+    _release(torch)
     if kind == 'paged':
         return PagedInferenceEngine(cfg, params, max_batch=8, max_seq=2048,
                                     n_pages=SPEC_N_PAGES, **kw)
@@ -4312,14 +4385,14 @@ def phase_lora_check_fp32(torch, seed):
                          'base_equal_bankless': True,
                          'graph_replays': eng.graph_stats()['graph_replays']}
         del eng
-        torch.cuda.empty_cache()
+        _release(torch)
     graphs._restore(saved)
     emit({'phase': 'lora_check', 'dtype': 'float32', 'model': cfg.name,
           'reduced': {'n_layers': [32, AUDIT_LAYERS]}, 'rank': LORA_RANK,
           'logits_max_abs_err': err, 'tolerance': TOL_LORA_LOGITS,
           'greedy_tokens': LORA_NEW, **streams})
     del params, merged, banked, bank
-    torch.cuda.empty_cache()
+    _release(torch)
 
 
 def phase_lora_check(torch, seed, params):
@@ -4345,7 +4418,6 @@ def phase_lora_check(torch, seed, params):
     prompts = _prompts(seed, cfg.vocab_size)
     trees = {f'ad{i}': _lora_tree(cfg, seed * 100 + i) for i in range(4)}
     plan = [None, 'ad0', 'ad1', 'ad2', None, 'ad0', 'ad1', 'ad2']
-    merged = _merged_params(torch, cfg, params, trees['ad0'])
     for kind in ('paged', 'slot'):
         plain = _lora_engine(torch, kind, cfg, params)
         base = _streams(plain, [(p, {}) for p in prompts])
@@ -4381,16 +4453,23 @@ def phase_lora_check(torch, seed, params):
         require(got == want, f'{kind}: the replayed graph did not follow '
                              f'the adapter loaded after capture')
         del fresh
-        torch.cuda.empty_cache()
+        _release(torch)
         timing = {
             'bank_off': _decode_timing(torch, plain,
                                        [(p, {}) for p in prompts], 8),
             'bank_on': _decode_timing(torch, eng, [
                 (p, {'adapter': a} if a else {})
                 for p, a in zip(prompts, plan)], 8)}
-        del plain
+        bank_bytes = multilora.bank_bytes(eng.adapters.bank)
+        replays = eng.graph_stats()['graph_replays']
+        del plain, eng
+        # The merged weights (a second copy of every target stack) are
+        # built only once the engines are gone, so the phase never holds
+        # the merged copy beside its three engines.
+        merged = _merged_params(torch, cfg, params, trees['ad0'])
         ref = _streams(_lora_engine(torch, kind, cfg, merged),
                        [(prompts[i], {}) for i in (1, 5)])
+        del merged
         same = sum(a == b for i, r in zip((1, 5), ref)
                    for a, b in zip(mixed[i], r))
         emit({'phase': 'lora_check', 'dtype': 'bfloat16', 'kind': kind,
@@ -4401,14 +4480,11 @@ def phase_lora_check(torch, seed, params):
               'loaded_after_capture_followed': True,
               'adapter_tokens_equal_merged_share':
                   same / (2 * LORA_NEW),
-              'bank_bytes': multilora.bank_bytes(eng.adapters.bank),
+              'bank_bytes': bank_bytes,
               'card': _card_label(), 'decode_call': timing,
               'graph_captures': stats['graph_captures'],
-              'graph_replays': eng.graph_stats()['graph_replays']})
-        del eng
-        torch.cuda.empty_cache()
-    del merged
-    torch.cuda.empty_cache()
+              'graph_replays': replays})
+        _release(torch)
     graphs._restore(saved)
 
 
@@ -4466,7 +4542,7 @@ def phase_serve_lora(torch, seed, params, adapter_dir, kv_cache='paged'):
     finally:
         srv.stop()
     del srv
-    torch.cuda.empty_cache()
+    _release(torch)
     torch.cuda.reset_peak_memory_stats()
     srv, port = _sched_server(params, seed, kv_cache=kv_cache,
                               adapter_slots=LORA_SLOTS,
@@ -4534,7 +4610,7 @@ def phase_serve_lora(torch, seed, params, adapter_dir, kv_cache='paged'):
     finally:
         srv.stop()
     del eng, srv, reg
-    torch.cuda.empty_cache()
+    _release(torch)
     return launches
 
 
@@ -4572,7 +4648,7 @@ def phase_grammar_check(torch, seed, params):
                   'unconstrained_outside_json': sum(
                       not json_mask[t] for t in out[2])})
             del eng
-            torch.cuda.empty_cache()
+            _release(torch)
     graphs._restore(saved)
 
 
@@ -4595,12 +4671,457 @@ def phase_lora_audit(torch):
                   **report.as_dict()})
             require(report.ok() and report.captures[0] > 0,
                     f'{report.name}: {report.violations()}')
-            torch.cuda.empty_cache()
+            _release(torch)
     graphs._restore(saved)
 
 
 _TIME_KEYS = ('ms', 'device_ms', 'device_ms_source', 'host_us', 'plain_ms',
               'bound_ms', 'bound_by', 'library_ms')
+
+
+# ------------------------------------------------ LoRA fine-tuning
+LORA_TRAIN = dict(model='llama3-8b', rank=16, alpha=32.0,
+                  targets=('wq', 'wk', 'wv', 'wo'), batch=2, seq=2048,
+                  steps=10, lr=1e-3)
+LORA_REMAT_STEPS = 5           # lora_remat's steps under each policy
+LORA_CHECK_LAYERS = 2          # depth of the bit-for-bit and fp32 checks
+LORA_CLI = dict(batch=2, seq=1024, steps=(2, 4))         # run, then resume
+
+
+def _lora_train_cfg(remat='block', n_layers=None):
+    """llama3-8b with LORA_TRAIN's adapters under ``remat``; the depth
+    cut to ``n_layers`` where given (the name then says so)."""
+    import dataclasses
+    from skypilot_tpu_torch.models import configs
+    t = LORA_TRAIN
+    cfg = dataclasses.replace(
+        configs.get_config(t['model']), remat=remat, lora_rank=t['rank'],
+        lora_alpha=t['alpha'], lora_targets=t['targets'])
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers,
+                                  name=f'{cfg.name}-depth{n_layers}')
+    return cfg
+
+
+def _lora_batch(torch, seed, cfg):
+    """The first packed LORA_TRAIN batch of the seeded corpus, on the
+    card."""
+    from skypilot_tpu_torch.models.tokenizer import load_tokenizer
+    from skypilot_tpu_torch.train.data import TokenStream, packed_batches
+    with tempfile.TemporaryDirectory() as tmp:
+        stream = TokenStream(_write_corpus(os.path.join(tmp, 'corpus.txt'),
+                                           seed),
+                             load_tokenizer(None, cfg.vocab_size))
+    batch = next(packed_batches(stream, batch=LORA_TRAIN['batch'],
+                                seq=LORA_TRAIN['seq']))
+    return {k: torch.as_tensor(v).cuda() for k, v in batch.items()}
+
+
+def _base_leaves(params):
+    """The frozen base's leaves (everything but ``layers['lora']``)."""
+    from skypilot_tpu_torch.train.optim import tree_leaves
+    return list(tree_leaves(dict(params, layers={
+        k: v for k, v in params['layers'].items() if k != 'lora'})))
+
+
+def _pinned_copy(torch, tensors):
+    """Host copies of CUDA tensors in pinned memory."""
+    out = []
+    for t in tensors:
+        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        h.copy_(t)
+        out.append(h)
+    return out
+
+
+def _bits_equal(torch, card, host):
+    """Each card tensor equal byte for byte to its host copy (compared
+    on the card, one leaf at a time)."""
+    return all(torch.equal(a.view(torch.uint8),
+                           b.to(a.device).view(torch.uint8))
+               for a, b in zip(card, host))
+
+
+def _tree_bytes(tree):
+    from skypilot_tpu_torch.train.optim import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def _lora_flops(cfg, tokens):
+    """Model FLOPs of a step as ``phase_train`` counts them: 6 N a
+    token (forward, the remat forward and the input gradients: a frozen
+    base takes no weight gradient) plus the causal attention."""
+    attn = 3 * 4 * cfg.head_dim * cfg.n_heads * LORA_TRAIN['batch'] * (
+        LORA_TRAIN['seq'] * (LORA_TRAIN['seq'] + 1) // 2) * cfg.n_layers
+    return cfg.flops_per_token(training=True) * tokens + attn
+
+
+def phase_lora_train(torch, seed):
+    """llama3-8b at full width and depth, bf16 base from the seed, rank-16
+    adapters on q, k, v and o, remat 'block': LORA_TRAIN['steps'] steps
+    of ``Trainer.fit`` on one repeated batch (2 x 2048). Every base leaf
+    is bit for bit its copy from before training (kept in pinned host
+    memory, compared as bytes), every ``b`` factor moved, the last loss is below the
+    first; K4 2L and K5a, K5b L launches a step. Returns (K4, K5a, K5b
+    launches, the trained params, the batch)."""
+    import itertools
+    import statistics
+    from skypilot_tpu_torch.models import lora
+    from skypilot_tpu_torch.ops import flash_attention as fa
+    from skypilot_tpu_torch.ops import paged_attention as pa
+    from skypilot_tpu_torch.train.trainer import TrainConfig, Trainer
+    cfg = _lora_train_cfg()
+    L, n = cfg.n_layers, LORA_TRAIN['steps']
+    tc = TrainConfig(learning_rate=LORA_TRAIN['lr'], warmup_steps=1,
+                     total_steps=n)
+    batch = _lora_batch(torch, seed, cfg)
+    _release(torch)
+    t0 = time.monotonic()
+    trainer = Trainer(cfg, train_config=tc, device='cuda')
+    state = trainer.init(seed)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    base_copy = _pinned_copy(torch, _base_leaves(state.params))
+    b0 = {t: ab['b'].clone() for t, ab in lora.split_lora(
+        state.params).items()}
+    copy_s = time.monotonic() - t0
+    torch.cuda.reset_peak_memory_stats()
+    log = _StepLog()
+    pa.reset_launch_counts()             # counts to 0 just before the path
+    fa.reset_launch_counts()
+    state = trainer.fit(state, itertools.repeat(batch), n, [log])
+    flash_after, paged_after = dict(fa.launch_counts), dict(pa.launch_counts)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    k4, k5a, k5b = (flash_after[k] for k in ('flash_fwd', 'flash_bwd_dkv',
+                                              'flash_bwd_dq'))
+    t0 = time.monotonic()
+    base_same = _bits_equal(torch, _base_leaves(state.params), base_copy)
+    compare_s = time.monotonic() - t0
+    del base_copy
+    moved = {t: float((ab['b'] - b0[t]).abs().max())
+             for t, ab in lora.split_lora(state.params).items()}
+    losses = [m['loss'] for m in log.metrics]
+    step_s = statistics.median(log.times[1:])
+    tokens = LORA_TRAIN['batch'] * LORA_TRAIN['seq']
+    flops = _lora_flops(cfg, tokens)
+    adapter_bytes = _tree_bytes(lora.split_lora(state.params))
+    opt = state.opt_state
+    emit({'phase': 'lora_train', 'model': cfg.name, 'card': _card_label(),
+          'n_params': cfg.num_params, 'dtype': 'bfloat16',
+          'remat': cfg.remat, 'rank': cfg.lora_rank,
+          'alpha': cfg.lora_alpha, 'targets': list(cfg.lora_targets),
+          'batch': LORA_TRAIN['batch'], 'seq': LORA_TRAIN['seq'],
+          'steps': n, 'lr': tc.learning_rate,
+          'lora_weight_decay': tc.lora_weight_decay, 'init_s': init_s,
+          'losses': losses, 'grad_norms': [m['grad_norm']
+                                           for m in log.metrics],
+          'step_s': log.times, 'step_s_median_after_step_1': step_s,
+          'tok_s': tokens / step_s, 'model_flops_per_step': flops,
+          'model_tflop_s': flops / step_s / 1e12,
+          'mfu': flops / step_s / FLOP_PEAKS['bf16_tensor_cores'],
+          'peak_mem_gb': peak_gb,
+          'launches_per_step': {'flash_fwd': k4 / n, 'flash_bwd_dkv': k5a / n,
+                                'flash_bwd_dq': k5b / n},
+          'adapter_params': sum(t.numel() for t in b0.values()) + sum(
+              ab['a'].numel() for ab in lora.split_lora(
+                  state.params).values()),
+          'adapter_bytes': adapter_bytes,
+          'optimizer_bytes': _tree_bytes(opt.mu) + _tree_bytes(opt.nu),
+          'base_bit_identical': base_same, 'b_max_abs_move': moved,
+          'base_copy_s': copy_s, 'base_compare_s': compare_s})
+    require(base_same, 'a frozen base leaf changed during LoRA training')
+    require(all(v > 0 for v in moved.values()), f'b did not move: {moved}')
+    require(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+            f'losses {losses}: not finite and falling')
+    require(k4 == 2 * L * n and k5a == L * n and k5b == L * n,
+            f'launches K4 {k4} (want {2 * L * n}), K5a {k5a}, K5b {k5b} '
+            f'(want {L * n} each)')
+    require(flash_after['flash_fwd_chunk'] == 0
+            and not any(paged_after.values()),
+            f'other kernels launched on the lora_train path: {flash_after} '
+            f'{paged_after}')
+    require(peak_gb < 80, f'peak memory {peak_gb} GB')
+    params = state.params
+    del trainer, state, log, opt
+    _release(torch)
+    return (k4, k5a, k5b), params, batch
+
+
+def phase_lora_remat(torch, seed, params, batch):
+    """The trained model (a copy of its adapters) under remat 'block',
+    'attn' and 'dots', LORA_REMAT_STEPS steps each: peak memory, step
+    time and K4 launches a step (L under 'attn', 2L under the others);
+    then at llama3-8b's width, depth cut to LORA_CHECK_LAYERS, one
+    ``value_and_grad`` under each policy equals 'none' bit for bit (K4,
+    K5a and K5b sum in a fixed order). Returns the launches of the
+    three runs (K4, K5a, K5b)."""
+    import itertools
+    import statistics
+    from skypilot_tpu_torch.models import llama, lora
+    from skypilot_tpu_torch.ops import flash_attention as fa
+    from skypilot_tpu_torch.train import trainer as tr
+    from skypilot_tpu_torch.train.optim import tree_leaves, tree_map
+    n = LORA_REMAT_STEPS
+    tc = tr.TrainConfig(learning_rate=LORA_TRAIN['lr'], warmup_steps=1,
+                        total_steps=n)
+    runs, totals = {}, {'flash_fwd': 0, 'flash_bwd_dkv': 0,
+                        'flash_bwd_dq': 0}
+    for remat in ('block', 'attn', 'dots'):
+        cfg = _lora_train_cfg(remat)
+        trainer = tr.Trainer(cfg, train_config=tc, device='cuda')
+        state = trainer.state_from_params(lora.with_lora(
+            params, tree_map(torch.clone, lora.split_lora(params))))
+        _release(torch)
+        torch.cuda.reset_peak_memory_stats()
+        log = _StepLog()
+        fa.reset_launch_counts()         # counts to 0 just before the path
+        trainer.fit(state, itertools.repeat(batch), n, [log])
+        counts = dict(fa.launch_counts)
+        for k in totals:
+            totals[k] += counts[k]
+        runs[remat] = {
+            'step_s': log.times,
+            'step_s_median_after_step_1': statistics.median(log.times[1:]),
+            'peak_mem_gb': torch.cuda.max_memory_allocated() / 1e9,
+            'k4_per_step': counts['flash_fwd'] / n,
+            'k5a_per_step': counts['flash_bwd_dkv'] / n,
+            'k5b_per_step': counts['flash_bwd_dq'] / n,
+            'losses': [m['loss'] for m in log.metrics]}
+        del trainer, state, log
+        _release(torch)
+    L = params['layers']['wq'].shape[0]
+    for remat, want in (('block', 2 * L), ('attn', L), ('dots', 2 * L)):
+        require(runs[remat]['k4_per_step'] == want
+                and runs[remat]['k5a_per_step'] == L
+                and runs[remat]['k5b_per_step'] == L,
+                f'{remat}: launches a step {runs[remat]} (K4 want {want})')
+    small = _lora_train_cfg('none', n_layers=LORA_CHECK_LAYERS)
+    sp = llama.init_params(small, seed)
+    gen = torch.Generator(device='cuda').manual_seed(seed + 5)
+    for ab in lora.split_lora(sp).values():
+        ab['b'].normal_(0.0, 0.01, generator=gen)   # a live delta
+    grads, before = {}, dict(fa.launch_counts)
+    for remat in ('none', 'block', 'attn', 'dots'):
+        cfg = _lora_train_cfg(remat, n_layers=LORA_CHECK_LAYERS)
+        grads[remat] = tr.value_and_grad(sp, batch, cfg)
+    fa.launch_counts.update(before)  # the bit-for-bit check is no main path
+    equal = {r: torch.equal(grads[r][0], grads['none'][0]) and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(grads[r][2]),
+                                          tree_leaves(grads['none'][2])))
+        for r in ('block', 'attn', 'dots')}
+    emit({'phase': 'lora_remat', 'model': LORA_TRAIN['model'],
+          'card': _card_label(), 'steps': n, 'batch': LORA_TRAIN['batch'],
+          'seq': LORA_TRAIN['seq'], 'policies': runs,
+          'grads_equal_none_bit_for_bit': equal,
+          'reduced': {'n_layers': [L, LORA_CHECK_LAYERS],
+                      'what': 'the bit-for-bit gradient check only'}})
+    require(all(equal.values()),
+            f'remat policies change the gradients: {equal}')
+    del sp, grads
+    _release(torch)
+    return tuple(totals[k] for k in ('flash_fwd', 'flash_bwd_dkv',
+                                     'flash_bwd_dq'))
+
+
+def _adapter_host(tree, n_layers=None):
+    """An adapter tree on the card as host numpy, the first ``n_layers``
+    layers where given."""
+    return {t: {k: v[:n_layers].float().cpu().numpy() for k, v in ab.items()}
+            for t, ab in tree.items()}
+
+
+def phase_lora_serve(torch, seed, params):
+    """The adapter lora_train trained, written by ``multilora.save_adapter``
+    into a temporary ``adapter_dir`` and served on a paged llama3-8b
+    engine with a 2-slot bank (K1 in the decode graphs): the 8 prompts,
+    every other one over the adapter, LORA_NEW greedy tokens each. The
+    base rows equal a bankless engine's bit for bit; the share of the
+    adapter rows' tokens equal to the offline-merged model's
+    (``lora.merge``) is reported (bf16: no identity is asserted). Then
+    at fp32 with the depth cut to LORA_CHECK_LAYERS (the trained
+    adapter's first layers): logits of the bank-served adapter within
+    TOL_LORA_LOGITS of the merged model's and the greedy tokens equal to
+    it on both engines. Returns the bank engine's K1 launches."""
+    import dataclasses
+    from skypilot_tpu_torch.inference import graphs
+    from skypilot_tpu_torch.models import configs, llama, lora, multilora
+    from skypilot_tpu_torch.ops import paged_attention as pa
+    tcfg = _lora_train_cfg()
+    cfg = configs.get_config(LORA_TRAIN['model'])
+    saved = graphs._snapshot()
+    tree = _adapter_host(lora.split_lora(params))
+    base = dict(params, layers={k: v for k, v in params['layers'].items()
+                                if k != 'lora'})
+    prompts = _prompts(seed, cfg.vocab_size)
+    plan = [None, 'trained'] * 4
+    kw = dict(adapter_slots=2, adapter_rank=tcfg.lora_rank)
+    with tempfile.TemporaryDirectory() as adapter_dir:
+        multilora.save_adapter(os.path.join(adapter_dir, 'trained.npz'),
+                               tcfg, tree)
+        plain = _streams(_lora_engine(torch, 'paged', cfg, base),
+                         [(p, {}) for p in prompts])
+        _release(torch)
+        eng = _lora_engine(torch, 'paged', cfg, base,
+                           adapter_dir=adapter_dir, **kw)
+        pa.reset_launch_counts()         # counts to 0 just before the path
+        mixed = _streams(eng, [(p, {'adapter': a} if a else {})
+                               for p, a in zip(prompts, plan)])
+        k1 = pa.launch_counts['paged_decode_attention[bf16]']
+        stats = eng.graph_stats()
+        del eng
+    _release(torch)
+    for i, a in enumerate(plan):
+        if a is None:
+            require(mixed[i] == plain[i],
+                    f'lora_serve: base row {i} differs from the bankless '
+                    'engine')
+    rows = [i for i, a in enumerate(plan) if a]
+    _, merged = lora.merge(tcfg, params)
+    ref = _streams(_lora_engine(torch, 'paged', cfg, merged),
+                   [(prompts[i], {}) for i in rows])
+    del merged
+    _release(torch)
+    same = sum(a == b for i, r in zip(rows, ref) for a, b in zip(mixed[i], r))
+    moved = sum(a != b for i in rows for a, b in zip(mixed[i], plain[i]))
+    require(k1 > 0 and stats['graph_replays'] > 0,
+            f'lora_serve: K1 {k1}, graphs {stats}')
+    # fp32, depth cut: the trained adapter's first layers.
+    small = dataclasses.replace(cfg, n_layers=LORA_CHECK_LAYERS,
+                                dtype=torch.float32,
+                                name=f'{cfg.name}-depth{LORA_CHECK_LAYERS}')
+    stcfg = dataclasses.replace(tcfg, n_layers=LORA_CHECK_LAYERS,
+                                dtype=torch.float32)
+    sp = llama.init_params(small, seed)
+    stree = _adapter_host(lora.split_lora(params), LORA_CHECK_LAYERS)
+    dev_tree = {t: {k: torch.from_numpy(v).cuda() for k, v in ab.items()}
+                for t, ab in stree.items()}
+    smerged = lora.merge(stcfg, lora.with_lora(sp, dev_tree))[1]
+    scale = stcfg.lora_scale
+    bank = multilora.init_bank(small, 2, stcfg.lora_rank,
+                               dtype=torch.float32)
+    multilora.set_bank_row(bank, multilora.adapter_row_from_tree(
+        small, stree, stcfg.lora_rank, scale,
+        targets=multilora.default_targets(small)), 1)
+    banked = dict(sp, layers=dict(sp['layers'], mlora=bank))
+    tokens = torch.tensor([prompts[0][:256]], device='cuda')
+    with torch.no_grad():
+        got = llama.forward(banked, tokens, small,
+                            mlora_idx=torch.tensor([1], device='cuda'))
+        want = llama.forward(smerged, tokens, small)
+        unadapted = llama.forward(sp, tokens, small)
+    err = float((got - want).abs().max())
+    delta = float((want - unadapted).abs().max())
+    require(err <= TOL_LORA_LOGITS,
+            f'lora_serve fp32: bank vs merged logits differ by {err}')
+    fp32 = {}
+    for kind in ('paged', 'slot'):
+        eng = _lora_engine(torch, kind, small, sp, **kw)
+        eng.adapters.register('trained', stree, scale=scale)
+        got_s = _streams(eng, [(prompts[0], {'adapter': 'trained'}),
+                               (prompts[1], {})])
+        ref_s = _streams(_lora_engine(torch, kind, small, smerged),
+                         [(prompts[0], {})])[0]
+        require(got_s[0] == ref_s,
+                f'lora_serve fp32 {kind}: adapter stream != merged')
+        fp32[kind] = {'adapter_equal_merged': True,
+                      'graph_replays': eng.graph_stats()['graph_replays']}
+        del eng
+        _release(torch)
+    graphs._restore(saved)
+    emit({'phase': 'lora_serve', 'model': cfg.name, 'card': _card_label(),
+          'rank': tcfg.lora_rank, 'fold_scale': tcfg.lora_scale,
+          'plan': plan, 'greedy_tokens': LORA_NEW,
+          'base_rows_bit_identical': True,
+          'adapter_tokens_equal_merged_share': same / (len(rows) * LORA_NEW),
+          'adapter_tokens_differing_from_base': moved,
+          'k1_launches': k1, 'graph_captures': stats['graph_captures'],
+          'graph_replays': stats['graph_replays'],
+          'fp32': {'reduced': {'n_layers': [cfg.n_layers,
+                                            LORA_CHECK_LAYERS]},
+                   'logits_max_abs_err': err, 'tolerance': TOL_LORA_LOGITS,
+                   'adapter_logit_delta_max': delta,
+                   'greedy_tokens': LORA_NEW, **fp32}})
+    del sp, smerged, banked, bank
+    _release(torch)
+    return k1
+
+
+def phase_lora_cli(torch, seed):
+    """``python -m skypilot_tpu_torch.train`` (its ``main``) with
+    ``--lora-rank 16 --adapter-out`` on llama3-8b's width, depth cut to
+    LORA_CHECK_LAYERS (a preset registered for the run), on a corpus
+    written from the seed: LORA_CLI['steps'][0] steps with a checkpoint,
+    then a relaunch that resumes from ``LATEST`` to the second count and
+    writes the adapter; the adapter loads back (``load_adapter``) equal
+    bit for bit to the last checkpoint's."""
+    import contextlib
+    import dataclasses
+    import io
+    from skypilot_tpu_torch.models import configs, lora
+    from skypilot_tpu_torch.train.__main__ import main as train_main
+    from skypilot_tpu_torch.train.optim import tree_leaves
+    from skypilot_tpu_torch.train.trainer import Trainer
+    t = LORA_TRAIN
+    base = configs.get_config(t['model'])
+    cfg = dataclasses.replace(base, n_layers=LORA_CHECK_LAYERS,
+                              name=f'{base.name}-depth{LORA_CHECK_LAYERS}')
+    first, last = LORA_CLI['steps']
+    configs.PRESETS[cfg.name] = cfg
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            ck, out = os.path.join(tmp, 'ck'), os.path.join(tmp, 'adapter')
+            argv = ['--model', cfg.name, '--data',
+                    _write_corpus(os.path.join(tmp, 'corpus.txt'), seed),
+                    '--batch', str(LORA_CLI['batch']),
+                    '--seq', str(LORA_CLI['seq']), '--lr', str(t['lr']),
+                    '--warmup-steps', '1', '--log-every', '1',
+                    '--ckpt-dir', ck, '--lora-rank', str(t['rank']),
+                    '--lora-alpha', str(t['alpha']),
+                    '--lora-targets', ','.join(t['targets']),
+                    '--adapter-out', out]
+            logs = []
+            t0 = time.monotonic()
+            for steps in (first, last):
+                buf = io.StringIO()
+                with contextlib.redirect_stdout(buf):
+                    train_main(argv + ['--steps', str(steps)])
+                logs.append(buf.getvalue())
+            run_s = time.monotonic() - t0
+            lines = [json.loads(ln) for text in logs
+                     for ln in text.splitlines() if ln.startswith('{')]
+            lcfg = dataclasses.replace(
+                cfg, lora_rank=t['rank'], lora_alpha=t['alpha'],
+                lora_targets=t['targets'])
+            trainer = Trainer(lcfg, device='cuda')
+            resumed = trainer.restore_checkpoint(
+                os.path.join(ck, f'step_{last}'))
+            loaded = trainer.load_adapter(out, resumed)
+            same = all(torch.equal(a, b) for a, b in zip(
+                tree_leaves(lora.split_lora(loaded.params)),
+                tree_leaves(lora.split_lora(resumed.params))))
+            with open(out + '.lora.json', encoding='utf-8') as f:
+                sidecar = json.load(f)
+            adapter_bytes = os.path.getsize(os.path.join(out, 'adapter.pt'))
+    finally:
+        del configs.PRESETS[cfg.name]
+    resumed_ok = f'step_{first} at step {first}' in logs[1]
+    emit({'phase': 'lora_cli', 'model': base.name, 'card': _card_label(),
+          'reduced': {'n_layers': [base.n_layers, LORA_CHECK_LAYERS]},
+          'batch': LORA_CLI['batch'], 'seq': LORA_CLI['seq'],
+          'steps': [ln['step'] for ln in lines],
+          'losses': [ln['loss'] for ln in lines],
+          'resumed_from_latest': resumed_ok, 'adapter_bytes': adapter_bytes,
+          'sidecar': sidecar, 'adapter_equal_checkpoint': same,
+          'run_s': run_s})
+    require(resumed_ok, f'the relaunch did not resume: {logs[1][:400]}')
+    require([ln['step'] for ln in lines] == list(range(1, last + 1)),
+            f'steps logged {lines}')
+    require(all(math.isfinite(ln['loss']) for ln in lines),
+            f'losses {lines}')
+    require(same, 'the loaded adapter differs from the checkpoint')
+    del trainer, resumed, loaded
+    _release(torch)
 
 
 def _kernel_entry(name, source, replaces, launches, worst, timing):
@@ -4676,11 +5197,12 @@ def main(argv=None) -> int:
         kv_launches = phase_kv_handoff(torch, args.seed, bf16_params)
         kv_k4, kv_k3 = phase_kv_handoff_slot(torch, args.seed, bf16_params)
         ckpt_k1 = phase_kv_checkpoint(torch, args.seed, bf16_params)
-        sched_k1 = phase_serve_sched(torch, args.seed, bf16_params)[
+        sched_k1 = phase_serve_sched(torch, args.seed, bf16_params,
+                                     scale=2)[
             'paged_decode_attention[bf16]']
         sched_slot = phase_serve_sched(torch, args.seed, bf16_params,
                                        kv_cache='slot',
-                                       phase='serve_sched_slot', scale=2)
+                                       phase='serve_sched_slot', scale=4)
         shed_k1 = phase_sched_shed(torch, args.seed, bf16_params)
         drain_k1 = phase_sched_drain(torch, args.seed, bf16_params)
         relay_k1 = phase_disagg_relay(torch, args.seed, bf16_params)
@@ -4695,7 +5217,7 @@ def main(argv=None) -> int:
         phase_lora_check(torch, args.seed, bf16_params)
         phase_grammar_check(torch, args.seed, bf16_params)
         del bf16_params
-        torch.cuda.empty_cache()
+        _release(torch)
         phase_decode_audits(torch)
         worst['flash_fwd_chunk'] = max(worst['flash_fwd_chunk'],
                                        phase_spec_check(torch, args.seed))
@@ -4711,7 +5233,7 @@ def main(argv=None) -> int:
                             (('pallas', 'int8'), ('pallas', 'int4'),
                              ('cross_layer', 'int8')))
         del int8_params
-        torch.cuda.empty_cache()
+        _release(torch)
         phase_reference(torch, args.seed)
         train_k4, k5a_launches, k5b_launches = phase_train(
             torch, args.seed, flash_times)
@@ -4728,13 +5250,21 @@ def main(argv=None) -> int:
             extra={'weights_built_on_card_from_seed': True,
                    'int4_group': 0})
         moe_k4, moe_k5a, moe_k5b = phase_train_moe(torch, args.seed)
+        lora_train, lora_params, lora_batch = phase_lora_train(torch,
+                                                               args.seed)
+        lora_remat = phase_lora_remat(torch, args.seed, lora_params,
+                                      lora_batch)
+        lora_serve_k1 = phase_lora_serve(torch, args.seed, lora_params)
+        del lora_params, lora_batch
+        _release(torch)
+        phase_lora_cli(torch, args.seed)
         emit({'kernels': [
             dict(_kernel_entry('paged_decode', 'paged_decode.cu',
                                'paged_attention.py:131',
                                bf16_launches + pinned_launches
                                + kv_launches['paged_decode_attention[bf16]']
                                + ckpt_k1 + sched_k1 + shed_k1 + drain_k1
-                               + relay_k1 + lora_k1,
+                               + relay_k1 + lora_k1 + lora_serve_k1,
                                worst['paged_decode'], times['paged_decode']),
                  launches_by_path={
                      'serve': bf16_launches,
@@ -4746,7 +5276,8 @@ def main(argv=None) -> int:
                      'sched_shed': shed_k1,
                      'sched_drain': drain_k1,
                      'disagg_relay': relay_k1,
-                     'serve_lora': lora_k1}),
+                     'serve_lora': lora_k1,
+                     'lora_serve': lora_serve_k1}),
             dict(_kernel_entry('paged_decode_int8', 'paged_decode.cu',
                                'paged_attention.py:103',
                                int8_launches + moe_launches
@@ -4808,7 +5339,8 @@ def main(argv=None) -> int:
                                'flash_attention.py:44',
                                k4_launches + train_k4 + moe_k4 + kv_k4
                                + sched_slot['flash_fwd']
-                               + lora_slot['flash_fwd'],
+                               + lora_slot['flash_fwd']
+                               + lora_train[0] + lora_remat[0],
                                worst['flash_fwd'],
                                flash_times[('flash_fwd', 'served')]),
                  launches_by_path={'serve_slot': k4_launches,
@@ -4818,23 +5350,38 @@ def main(argv=None) -> int:
                                    'serve_sched_slot':
                                        sched_slot['flash_fwd'],
                                    'serve_lora_slot':
-                                       lora_slot['flash_fwd']}),
+                                       lora_slot['flash_fwd'],
+                                   'lora_train': lora_train[0],
+                                   'lora_remat': lora_remat[0]},
+                 times_by_shape=_times_by_shape(
+                     flash_times, 'flash_fwd',
+                     ('served', 'long', 'train', '7b', '8b_train'))),
             dict(_kernel_entry('flash_bwd_dkv', 'flash_bwd.cu',
                                'flash_attention.py:284',
-                               k5a_launches + moe_k5a,
+                               k5a_launches + moe_k5a + lora_train[1]
+                               + lora_remat[1],
                                worst['flash_bwd_dkv'],
                                flash_times[('flash_bwd_dkv', 'train')]),
                  launches_by_path={'train': k5a_launches,
-                                   'train_moe': moe_k5a}),
+                                   'train_moe': moe_k5a,
+                                   'lora_train': lora_train[1],
+                                   'lora_remat': lora_remat[1]},
+                 times_by_shape=_times_by_shape(
+                     flash_times, 'flash_bwd_dkv',
+                     ('train', '7b', '8b_train'))),
             dict(_kernel_entry('flash_bwd_dq', 'flash_bwd.cu',
                                'flash_attention.py:341',
-                               k5b_launches + moe_k5b,
+                               k5b_launches + moe_k5b + lora_train[2]
+                               + lora_remat[2],
                                worst['flash_bwd_dq'],
                                flash_times[('flash_bwd_dq', 'train')]),
                  launches_by_path={'train': k5b_launches,
-                                   'train_moe': moe_k5b},
+                                   'train_moe': moe_k5b,
+                                   'lora_train': lora_train[2],
+                                   'lora_remat': lora_remat[2]},
                  times_by_shape=_times_by_shape(
-                     flash_times, 'flash_bwd_dq', ('train', '7b')))]})
+                     flash_times, 'flash_bwd_dq',
+                     ('train', '7b', '8b_train')))]})
     except Exception as e:  # pylint: disable=broad-except
         import traceback
         traceback.print_exc()

@@ -248,10 +248,10 @@ def prepare_params(cfg, params, *, quantize: Optional[str] = None,
 
 
 def serving_config(cfg: ModelConfig) -> ModelConfig:
-    """The configuration an engine serves: ``cfg`` checked for the
-    serving path, its LoRA fields cleared (``prepare_params`` folds the
-    adapters into the base)."""
-    return lora.maybe_merge(check_supported(cfg, serving=True), None)[0]
+    """The configuration an engine serves: ``cfg`` checked, its LoRA
+    fields cleared (``prepare_params`` folds the adapters into the
+    base)."""
+    return lora.maybe_merge(check_supported(cfg), None)[0]
 
 
 def _from_pretrained(engine_cls, path: str, dtype: Optional[torch.dtype],

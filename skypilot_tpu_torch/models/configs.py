@@ -5,12 +5,11 @@ The port runs the Llama (SwiGLU, RMSNorm ``x * w``, untied embeddings),
 Gemma (GeGLU, RMSNorm ``x * (1 + w)``, tied and ``sqrt(dim)``-scaled
 embeddings), Qwen2 (biases on the q/k/v projections) and Mixtral
 (routed SwiGLU experts, ``models/moe.py``) families. A configuration
-with LoRA adapters (``lora_rank > 0``) is served with its adapters
-folded into the base weights (``models/lora.py``: ``maybe_merge``), so
-:func:`check_supported` accepts it on the serving path
-(``serving=True``) and refuses it elsewhere (LoRA training is not
-ported). Per-request adapters are the engines' multi-LoRA bank
-(``models/multilora.py``, ``inference/adapters.py``)."""
+with LoRA adapters (``lora_rank > 0``) trains only its adapters
+(``train/trainer.py``) and is served with them folded into the base
+weights (``models/lora.py``: ``maybe_merge``). Per-request adapters are
+the engines' multi-LoRA bank (``models/multilora.py``,
+``inference/adapters.py``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -39,8 +38,8 @@ class ModelConfig:
     # Expert buffer size = tokens * k / E * this factor (GShard capacity;
     # tokens routed past a full expert are dropped to the residual path).
     moe_capacity_factor: float = 1.25
-    # Remat policy for training: 'none' | 'block' (checkpoint each
-    # layer); the reference's 'attn' and 'dots' are not ported.
+    # Remat policy for training: 'none' | 'block' | 'attn' | 'dots'
+    # (models/remat.py).
     remat: str = 'block'
     tie_embeddings: bool = False
     activation: str = 'silu'            # 'silu' | 'gelu'
@@ -49,9 +48,9 @@ class ModelConfig:
     head_dim_override: Optional[int] = None
     qkv_bias: bool = False
     # LoRA (the reference's fields): rank > 0 means the param tree
-    # carries adapter leaves under ``params['layers']['lora']``, folded
-    # into the base weights at serving load (``W += alpha / rank * A @
-    # B``).
+    # carries adapter leaves under ``params['layers']['lora']``: the
+    # only trainable leaves, folded into the base weights at serving
+    # load (``W += alpha / rank * A @ B``).
     lora_rank: int = 0
     lora_alpha: float = 16.0
     lora_targets: tuple = ('wq', 'wk', 'wv', 'wo')
@@ -106,19 +105,12 @@ class ModelConfig:
         return (6.0 if training else 2.0) * self.active_params
 
 
-def check_supported(cfg: ModelConfig, *,
-                    serving: bool = False) -> ModelConfig:
-    """Raise ``NotImplementedError`` for knobs the port does not
-    implement (LoRA outside the serving path, where the engines fold the
-    adapters into the base); returns ``cfg`` unchanged otherwise."""
-    unsupported = [name for name, on in (
-        ('lora_rank', cfg.lora_rank > 0 and not serving),) if on]
+def check_supported(cfg: ModelConfig) -> ModelConfig:
+    """Raise for an unknown activation (``ValueError``) or a dtype the
+    port does not run (``NotImplementedError``); returns ``cfg``
+    unchanged otherwise."""
     if cfg.activation not in ('silu', 'gelu'):
         raise ValueError(f'unknown activation {cfg.activation!r}')
-    if unsupported:
-        raise NotImplementedError(
-            f'model {cfg.name!r} uses {", ".join(unsupported)}, which the '
-            'PyTorch port does not implement yet')
     if cfg.dtype not in (torch.bfloat16, torch.float32):
         raise NotImplementedError(f'dtype {cfg.dtype} is not supported; '
                                   'use torch.bfloat16 or torch.float32')

@@ -59,12 +59,15 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig, *,
     ``device``: weights in ``cfg.dtype``, norms in fp32, int8 leaves as
     ``QuantizedWeight`` (codes int8, scales in ``cfg.dtype``) and int4
     leaves as ``QuantizedWeight4`` (packed uint8 codes, scales in
-    ``cfg.dtype``)."""
+    ``cfg.dtype``). A LoRA tree (``cfg.lora_enabled``) brings its
+    ``layers['lora']`` adapters across in fp32, whatever ``cfg.dtype``
+    is."""
     check_supported(cfg)
     dev = resolve_device(device)
     top, layer_keys = param_keys(cfg)
+    lora_key = {'lora'} if cfg.lora_enabled else set()
     extra = (set(tree) - set(top) - {'layers'}) | (
-        set(tree['layers']) - set(layer_keys))
+        set(tree['layers']) - set(layer_keys) - lora_key)
     if extra:
         raise NotImplementedError(
             f'param leaves {sorted(extra)} are not supported by the port')
@@ -89,17 +92,25 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig, *,
 
     out: Params = {k: leaf(k, tree[k]) for k in top}
     out['layers'] = {k: leaf(k, tree['layers'][k]) for k in layer_keys}
+    if lora_key and 'lora' in tree['layers']:
+        out['layers']['lora'] = {
+            t: {k: _to_tensor(v).to(device=dev, dtype=torch.float32)
+                for k, v in ab.items()}
+            for t, ab in tree['layers']['lora'].items()}
     return out
 
 
 def params_to_numpy(params: Params) -> Dict[str, Any]:
     """The inverse of :func:`params_from_numpy` for unquantized trees
-    (dense or MoE): the port's params (or a gradient tree of the same
-    shape) as host numpy with the JAX tree's keys and layouts. numpy has
-    no bfloat16, so bf16 leaves come back as fp32 holding the same
-    values (``params_from_numpy`` casts them back exactly). Quantized
-    leaves are refused: nothing trains them."""
+    (dense or MoE, with or without ``layers['lora']``): the port's
+    params, or any subtree of them such as a gradient or adapter tree,
+    as host numpy with the JAX tree's keys and layouts. numpy has no
+    bfloat16, so bf16 leaves come back as fp32 holding the same values
+    (``params_from_numpy`` casts them back exactly). Quantized leaves
+    are refused: nothing trains them."""
     def leaf(v):
+        if isinstance(v, dict):
+            return {k: leaf(x) for k, x in v.items()}
         if isinstance(v, QUANT_LEAF_TYPES):
             raise NotImplementedError(
                 'params_to_numpy takes dense trees; quantized leaves are '
@@ -107,9 +118,7 @@ def params_to_numpy(params: Params) -> Dict[str, Any]:
         v = v.detach().cpu()
         return (v.float() if v.dtype == torch.bfloat16 else v).numpy()
 
-    out = {k: leaf(v) for k, v in params.items() if k != 'layers'}
-    out['layers'] = {k: leaf(v) for k, v in params['layers'].items()}
-    return out
+    return leaf(params)
 
 
 def kv_cache_from_numpy(cache: Any, cfg: ModelConfig, *,

@@ -32,7 +32,8 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
-from skypilot_tpu_torch.models import moe, multilora, quantization
+from skypilot_tpu_torch.models import (lora, moe, multilora, quantization,
+                                       remat)
 from skypilot_tpu_torch.models.configs import ModelConfig, check_supported
 from skypilot_tpu_torch.models.quantization import (QUANT_LEAF_TYPES,
                                                     matmul_f32, pack_int4,
@@ -69,7 +70,11 @@ def init_params(cfg: ModelConfig, seed: Union[int, torch.Generator] = 0,
     (``quantization.quantize_slice``), so the model-dtype tree never
     exists: the result equals ``quantize_params(init_params(...))``
     from the same seed, and a model too large for the card in bf16
-    (mixtral-8x7b, llama3-70b) builds within its quantized size."""
+    (mixtral-8x7b, llama3-70b) builds within its quantized size.
+
+    Under ``cfg.lora_enabled`` the fp32 adapters
+    (``lora.init_lora_layers``, from the same generator after the base)
+    go under ``params['layers']['lora']``."""
     check_supported(cfg)
     dev = resolve_device(device)
     if isinstance(seed, torch.Generator):
@@ -129,6 +134,9 @@ def init_params(cfg: ModelConfig, seed: Union[int, torch.Generator] = 0,
             bq=torch.zeros(L, n_h, hd, dtype=torch.float32, device=dev),
             bk=torch.zeros(L, n_kv, hd, dtype=torch.float32, device=dev),
             bv=torch.zeros(L, n_kv, hd, dtype=torch.float32, device=dev))
+    if cfg.lora_enabled:
+        params['layers']['lora'] = lora.init_lora_layers(cfg, gen,
+                                                         device=dev)
     return params
 
 
@@ -384,24 +392,90 @@ def _bank(layer: Params, mlora_idx: Optional[torch.Tensor]):
     return layer.get('mlora') if mlora_idx is not None else None
 
 
+def _adapters(layer: Params, mlora_idx: Optional[torch.Tensor]):
+    """The layer's trained LoRA adapters (``layer['lora']``) when no row
+    names a bank adapter: the two are exclusive."""
+    return layer.get('lora') if mlora_idx is None else None
+
+
+def _plus_lora(y: torch.Tensor, lo: Optional[Params], target: str,
+               x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """``y`` plus the adapter's delta of ``target`` on input ``x``; ``y``
+    itself when the target is not adapted."""
+    if lo is None or target not in lo:
+        return y
+    return y + lora.apply(lo, target, x, cfg)
+
+
 def _ffn(layer: Params, x: torch.Tensor, cfg: ModelConfig,
          mlora_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
     ml = _bank(layer, mlora_idx)
-    gate = qeinsum('bsd,df->bsf', x, layer['w_gate'])
-    up = qeinsum('bsd,df->bsf', x, layer['w_up'])
+    lo = _adapters(layer, mlora_idx)
+    with remat.weight_products():
+        gate = qeinsum('bsd,df->bsf', x, layer['w_gate'])
+        up = qeinsum('bsd,df->bsf', x, layer['w_up'])
+    gate = _plus_lora(gate, lo, 'w_gate', x, cfg)
+    up = _plus_lora(up, lo, 'w_up', x, cfg)
     if ml is not None:
         gate = multilora.adjusted(ml, 'w_gate', x, gate, mlora_idx)
         up = multilora.adjusted(ml, 'w_up', x, up, mlora_idx)
     act = (F.silu(gate.float()) if cfg.activation == 'silu'
            else F.gelu(gate.float(), approximate='tanh'))
     h = act.to(x.dtype) * up
-    down = qeinsum('bsf,fd->bsd', h, layer['w_down'])
+    with remat.weight_products():
+        down = qeinsum('bsf,fd->bsd', h, layer['w_down'])
+    down = _plus_lora(down, lo, 'w_down', h, cfg)
     if ml is not None:
         down = multilora.adjusted(ml, 'w_down', h, down, mlora_idx)
     return down
 
 
 AttnFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
+
+
+def _attn_inputs(layer: Params, x: torch.Tensor, cfg: ModelConfig,
+                 positions: torch.Tensor,
+                 mlora_idx: Optional[torch.Tensor] = None):
+    """The layer up to its attention: the roped q and k, and v."""
+    ml = _bank(layer, mlora_idx)
+    lo = _adapters(layer, mlora_idx)
+    h = rms_norm(x, layer['attn_norm'], cfg.norm_eps, cfg.norm_plus_one)
+    with remat.weight_products():
+        q = qeinsum('bsd,dhk->bshk', h, layer['wq'])
+        k = qeinsum('bsd,dhk->bshk', h, layer['wk'])
+        v = qeinsum('bsd,dhk->bshk', h, layer['wv'])
+    q = _plus_lora(q, lo, 'wq', h, cfg)
+    k = _plus_lora(k, lo, 'wk', h, cfg)
+    v = _plus_lora(v, lo, 'wv', h, cfg)
+    if ml is not None:
+        q = multilora.adjusted(ml, 'wq', h, q, mlora_idx)
+        k = multilora.adjusted(ml, 'wk', h, k, mlora_idx)
+        v = multilora.adjusted(ml, 'wv', h, v, mlora_idx)
+    if cfg.qkv_bias:                          # Qwen2: biases before rope
+        q = q + layer['bq'].to(q.dtype)
+        k = k + layer['bk'].to(k.dtype)
+        v = v + layer['bv'].to(v.dtype)
+    return (rope(q, positions, cfg.rope_theta),
+            rope(k, positions, cfg.rope_theta), v)
+
+
+def _attn_outputs(layer: Params, x: torch.Tensor, out: torch.Tensor,
+                  cfg: ModelConfig,
+                  mlora_idx: Optional[torch.Tensor] = None):
+    """The layer from its attention output ``out`` on: (x, aux)."""
+    ml = _bank(layer, mlora_idx)
+    with remat.weight_products():
+        proj = qeinsum('bshk,hkd->bsd', out, layer['wo'])
+    proj = _plus_lora(proj, _adapters(layer, mlora_idx), 'wo', out, cfg)
+    if ml is not None:
+        proj = multilora.adjusted(ml, 'wo', out, proj, mlora_idx)
+    x = x + proj
+    h = rms_norm(x, layer['ffn_norm'], cfg.norm_eps, cfg.norm_plus_one)
+    if cfg.is_moe:
+        ffn_out, aux = moe.moe_ffn(layer, h, cfg)
+    else:
+        ffn_out, aux = _ffn(layer, h, cfg, mlora_idx), None
+    return x + ffn_out, aux
 
 
 def _layer_core(layer: Params, x: torch.Tensor, cfg: ModelConfig,
@@ -413,37 +487,16 @@ def _layer_core(layer: Params, x: torch.Tensor, cfg: ModelConfig,
     ``cfg.is_moe``, whose load-balancing loss is ``aux`` (an fp32
     scalar; None for a dense FFN, which has none).
 
-    ``mlora_idx`` ([b] int32, -1 = none) gathers per-row adapters from
-    the ``layer['mlora']`` bank slice next to q, k, v and wo on every
-    family and the dense FFN's projections; None leaves the math
-    untouched. The delta applies to ``qeinsum``'s output, so it composes
-    with int8 and int4 weights."""
-    ml = _bank(layer, mlora_idx)
-    h = rms_norm(x, layer['attn_norm'], cfg.norm_eps, cfg.norm_plus_one)
-    q = qeinsum('bsd,dhk->bshk', h, layer['wq'])
-    k = qeinsum('bsd,dhk->bshk', h, layer['wk'])
-    v = qeinsum('bsd,dhk->bshk', h, layer['wv'])
-    if ml is not None:
-        q = multilora.adjusted(ml, 'wq', h, q, mlora_idx)
-        k = multilora.adjusted(ml, 'wk', h, k, mlora_idx)
-        v = multilora.adjusted(ml, 'wv', h, v, mlora_idx)
-    if cfg.qkv_bias:                          # Qwen2: biases before rope
-        q = q + layer['bq'].to(q.dtype)
-        k = k + layer['bk'].to(k.dtype)
-        v = v + layer['bv'].to(v.dtype)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
-    out = attn_fn(q, k, v)
-    proj = qeinsum('bshk,hkd->bsd', out, layer['wo'])
-    if ml is not None:
-        proj = multilora.adjusted(ml, 'wo', out, proj, mlora_idx)
-    x = x + proj
-    h = rms_norm(x, layer['ffn_norm'], cfg.norm_eps, cfg.norm_plus_one)
-    if cfg.is_moe:
-        ffn_out, aux = moe.moe_ffn(layer, h, cfg)
-    else:
-        ffn_out, aux = _ffn(layer, h, cfg, mlora_idx), None
-    return x + ffn_out, (k, v), aux
+    Trained adapters (``layer['lora']``) add their delta next to each
+    adapted projection (``lora.apply``). ``mlora_idx`` ([b] int32, -1 =
+    none) instead gathers per-row adapters from the ``layer['mlora']``
+    bank slice next to q, k, v and wo on every family and the dense
+    FFN's projections; None leaves the bank untouched. The bank's delta
+    applies to ``qeinsum``'s output, so it composes with int8 and int4
+    weights."""
+    q, k, v = _attn_inputs(layer, x, cfg, positions, mlora_idx)
+    x, aux = _attn_outputs(layer, x, attn_fn(q, k, v), cfg, mlora_idx)
+    return x, (k, v), aux
 
 
 # --------------------------------------------------------------------------
@@ -460,15 +513,17 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
     model). ``mlora_idx`` ([b], -1 = none) applies each row's adapter
     from the bank at ``params['layers']['mlora']``.
 
-    Under autograd ``cfg.remat='block'`` checkpoints each layer
-    (``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` with
-    ``nothing_saveable``): only the layer inputs are kept, and the
-    backward re-runs each layer's forward once."""
-    if cfg.remat not in ('none', 'block'):
-        if cfg.remat in ('attn', 'dots'):
-            raise NotImplementedError(
-                f"remat={cfg.remat!r} is not ported; use 'none' or 'block'")
-        raise ValueError(f'unknown remat policy {cfg.remat!r}')
+    Under autograd ``cfg.remat`` picks what the backward recomputes
+    (``models/remat.py``): 'block' checkpoints each layer
+    (``torch.utils.checkpoint``: only the layer inputs are kept, the
+    backward re-runs each layer's forward once, attention included);
+    'attn' checkpoints the parts before and after the attention, which
+    keeps its own inputs and output, so the backward never re-runs it;
+    'dots' keeps the outputs of the products with no batch dimension
+    and recomputes the rest of the layer."""
+    if cfg.remat not in remat.POLICIES:
+        raise ValueError(f'unknown remat policy {cfg.remat!r}; legal: '
+                         f'{remat.POLICIES}')
     x = _embed_tokens(params, tokens, cfg)
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
@@ -479,18 +534,29 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
     def layer_fn(layer, x):
         x, _, aux = _layer_core(layer, x, cfg, positions, attn_fn,
                                 mlora_idx)
-        return x if aux is None else (x, aux)
+        return x, aux
 
-    remat = cfg.remat == 'block' and torch.is_grad_enabled()
+    def attn_saving_fn(layer, x):
+        q, k, v = torch.utils.checkpoint.checkpoint(
+            _attn_inputs, layer, x, cfg, positions, mlora_idx,
+            use_reentrant=False)
+        return torch.utils.checkpoint.checkpoint(
+            _attn_outputs, layer, x, attn_fn(q, k, v), cfg, mlora_idx,
+            use_reentrant=False)
+
+    policy = cfg.remat if torch.is_grad_enabled() else 'none'
     auxs = []
     for layer in unbind_layers(params):
-        if remat:
-            x = torch.utils.checkpoint.checkpoint(layer_fn, layer, x,
-                                                  use_reentrant=False)
+        if policy == 'none':
+            x, aux = layer_fn(layer, x)
+        elif policy == 'attn':
+            x, aux = attn_saving_fn(layer, x)
         else:
-            x = layer_fn(layer, x)
-        if cfg.is_moe:
-            x, aux = x
+            kw = ({'context_fn': remat.dots_contexts} if policy == 'dots'
+                  else {})
+            x, aux = torch.utils.checkpoint.checkpoint(
+                layer_fn, layer, x, use_reentrant=False, **kw)
+        if aux is not None:
             auxs.append(aux)
     x = rms_norm(x, params['final_norm'], cfg.norm_eps, cfg.norm_plus_one)
     logits = _unembed_logits(params, x, cfg)

@@ -1,4 +1,4 @@
-"""LoRA adapters served by folding (own copy of the serving half of
+"""LoRA adapters: training and serving by folding (own copy of
 ``skypilot_tpu/models/lora.py``).
 
 - Adapter leaves live under ``params['layers']['lora'][target]['a'|'b']``
@@ -10,10 +10,16 @@
   :func:`maybe_merge`, so a LoRA checkpoint is served as its merged
   model. Only a bf16/fp32 base can be merged: quantize after merging.
 
-LoRA training (the reference's ``init_lora_layers`` and the unmerged
-``apply`` inside the layer) is not ported; the trainer refuses
-``lora_rank > 0``. Per-request adapters over one base are the
-multi-LoRA bank (``models/multilora.py``).
+- Training: :func:`init_lora_layers` draws ``a`` ~ N(0, 1/fan_in) and
+  ``b`` = 0 in fp32, so the adapted model's first forward equals the
+  base model's bit for bit; ``llama._layer_core`` adds :func:`apply`'s
+  delta next to each adapted projection; the trainer differentiates
+  only the adapter leaves (:func:`split_lora`), the base stays frozen.
+  The factors stay fp32 and are cast to the activation dtype at apply
+  time.
+
+Per-request adapters over one base are the multi-LoRA bank
+(``models/multilora.py``).
 """
 from __future__ import annotations
 
@@ -22,7 +28,9 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from skypilot_tpu_torch.models import remat
 from skypilot_tpu_torch.models.configs import ModelConfig
+from skypilot_tpu_torch.utils.device import DeviceLike, resolve_device
 
 Params = Dict[str, Any]
 
@@ -68,6 +76,53 @@ def _target_shapes(cfg: ModelConfig, target: str):
         'w_up': ((d, r), (r, f)),
         'w_down': ((f, r), (r, d)),
     }[target]
+
+
+def init_lora_layers(cfg: ModelConfig, gen: torch.Generator, *,
+                     device: DeviceLike = 'cuda') -> Params:
+    """The ``params['layers']['lora']`` subtree: per-target a/b stacks
+    ``[L, ...]`` in fp32 on ``device``, ``a`` ~ N(0, 1/fan_in) drawn
+    from ``gen`` (a generator on that device) target by target, ``b`` =
+    0: the delta is exactly zero until training moves ``b``."""
+    dev = resolve_device(device)
+    L = cfg.n_layers
+    out: Params = {}
+    for t in resolve_targets(cfg):
+        a_shape, b_shape = _target_shapes(cfg, t)
+        fan_in = 1
+        for s in a_shape[:-1]:
+            fan_in *= s
+        a = torch.randn((L,) + a_shape, generator=gen, device=dev,
+                        dtype=torch.float32)
+        out[t] = {'a': a.mul_(fan_in ** -0.5),
+                  'b': torch.zeros((L,) + b_shape, dtype=torch.float32,
+                                   device=dev)}
+    return out
+
+
+def _ab_matmul(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+               target: str) -> torch.Tensor:
+    """x -> (x @ a) @ b for one layer's adapter, the factors cast to x's
+    dtype (each product rounds to it, as the reference's einsums do)."""
+    dt = x.dtype
+    with remat.weight_products():
+        if target == 'wo':                       # x: [b, s, h, k]
+            z = torch.einsum('bshk,hkr->bsr', x, a.to(dt))
+            return torch.einsum('bsr,rd->bsd', z, b.to(dt))
+        z = torch.einsum('bsd,dr->bsr', x, a.to(dt))
+        if target in ('wq', 'wk', 'wv'):
+            return torch.einsum('bsr,rhk->bshk', z, b.to(dt))
+        return torch.einsum('bsr,rf->bsf', z, b.to(dt))
+
+
+def apply(lora_layer: Params, target: str, x: torch.Tensor,
+          cfg: ModelConfig) -> torch.Tensor:
+    """The scaled low-rank delta for ``target`` in x's dtype (the scale
+    multiplies in that dtype), or a zero scalar if not adapted."""
+    if lora_layer is None or target not in lora_layer:
+        return torch.zeros((), dtype=x.dtype, device=x.device)
+    ab = lora_layer[target]
+    return cfg.lora_scale * _ab_matmul(x, ab['a'], ab['b'], target)
 
 
 def merge(cfg: ModelConfig, params: Params) -> Tuple[ModelConfig, Params]:
@@ -129,7 +184,7 @@ def maybe_merge(cfg: ModelConfig, params) -> Tuple[ModelConfig, Any]:
 
 
 def split_lora(params: Params) -> Params:
-    """The adapter subtree (shared structure with params)."""
+    """The trainable adapter subtree (shared structure with params)."""
     return params['layers']['lora']
 
 

@@ -30,6 +30,7 @@ from typing import Any, Dict
 import torch
 import torch.nn.functional as F
 
+from skypilot_tpu_torch.models import remat
 from skypilot_tpu_torch.models.configs import ModelConfig
 from skypilot_tpu_torch.models.quantization import deq, matmul_f32
 
@@ -119,7 +120,8 @@ def moe_ffn(layer: Params, x: torch.Tensor, cfg: ModelConfig):
     b, s, d = x.shape
     T = b * s
     xt = x.reshape(T, d)
-    router_logits = matmul_f32(xt, layer['router'])            # [T, E]
+    with remat.weight_products():
+        router_logits = matmul_f32(xt, layer['router'])        # [T, E]
     topk_vals, topk_idx = route(router_logits, k)
     topk_w = torch.softmax(topk_vals, dim=-1)                   # [T, k]
     aux = load_balancing_loss(router_logits.reshape(b, s, E),

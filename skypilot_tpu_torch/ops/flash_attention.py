@@ -409,7 +409,10 @@ class _FlashAttention(torch.autograd.Function):
     """Differentiable flash attention (the counterpart of the
     reference's ``_flash_bhsd`` with ``_flash_fwd_rule`` and
     ``_flash_bwd_rule``): K4 forward saving (q, k, v, out, lse); K5a and
-    K5b backward (for CPU tensors, the plain backward once)."""
+    K5b backward (for CPU tensors, the plain backward once). A kernel
+    whose gradients no input asks for is not launched (K5a when neither
+    k nor v needs one, K5b when q does not: a LoRA step's first layer
+    with adapters on q alone)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale):
@@ -426,11 +429,16 @@ class _FlashAttention(torch.autograd.Function):
             return flash_attention_bwd_reference(
                 q, k, v, out, lse, do, causal=ctx.causal,
                 scale=ctx.scale) + (None, None)
+        need_q, need_k, need_v = ctx.needs_input_grad[:3]
         delta = attention_delta(out, do)
-        dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta,
-                                         causal=ctx.causal, scale=ctx.scale)
-        dq = flash_attention_bwd_dq(q, k, v, do, lse, delta,
-                                    causal=ctx.causal, scale=ctx.scale)
+        dq = dk = dv = None
+        if need_k or need_v:
+            dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                             causal=ctx.causal,
+                                             scale=ctx.scale)
+        if need_q:
+            dq = flash_attention_bwd_dq(q, k, v, do, lse, delta,
+                                        causal=ctx.causal, scale=ctx.scale)
         return dq, dk, dv, None, None
 
 

@@ -17,12 +17,20 @@ Example (on the card; ``--device cpu`` runs the same on the CPU):
 
 ``--from-pretrained DIR`` fine-tunes ``--model`` from the weights of an
 HF checkpoint directory of that model (a checkpoint in ``--ckpt-dir``
-still wins). ``--lora-rank`` > 0, ``--tp`` and ``--sp`` > 1 are not
-ported and raise.
+still wins). ``--lora-rank N`` > 0 trains rank-N adapters on
+``--lora-targets`` with the base frozen, and ``--adapter-out P`` saves
+the final adapters alone (``Trainer.save_adapter``):
+
+    python -m skypilot_tpu_torch.train --model llama3-8b \\
+        --from-pretrained /ckpt/llama3-8b --data corpus/ --lora-rank 16 \\
+        --lora-alpha 32 --adapter-out /ckpt/adapter
+
+``--tp`` and ``--sp`` > 1 (a mesh) are not ported and raise.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import time
@@ -49,7 +57,16 @@ def main(argv=None) -> None:
     parser.add_argument('--from-pretrained', default=None,
                         help='HF checkpoint dir of --model to fine-tune '
                              'from')
-    parser.add_argument('--lora-rank', type=int, default=0)
+    parser.add_argument('--lora-rank', type=int, default=0,
+                        help='> 0 enables LoRA fine-tuning: the base is '
+                             'frozen, only low-rank adapters train '
+                             '(models/lora.py)')
+    parser.add_argument('--lora-alpha', type=float, default=16.0)
+    parser.add_argument('--lora-targets', default='wq,wk,wv,wo',
+                        help='comma-separated projections to adapt')
+    parser.add_argument('--adapter-out', default=None,
+                        help='where to save the final adapter-only '
+                             'checkpoint (LoRA runs)')
     parser.add_argument('--tp', type=int, default=None)
     parser.add_argument('--sp', type=int, default=1)
     parser.add_argument('--attn-impl', default='auto')
@@ -59,11 +76,10 @@ def main(argv=None) -> None:
                         help="'cuda' (default) or 'cpu'")
     args = parser.parse_args(argv)
 
-    for flag, on in (('--lora-rank', args.lora_rank > 0),
-                     ('--tp', args.tp), ('--sp', args.sp > 1)):
+    for flag, on in (('--tp', args.tp), ('--sp', args.sp > 1)):
         if on:
             raise NotImplementedError(
-                f'{flag} is not ported (ROADMAP §1 item 12 (training))')
+                f'{flag} is not ported (ROADMAP §1 item 8: a mesh)')
 
     from skypilot_tpu_torch.models import configs
     from skypilot_tpu_torch.models.tokenizer import load_tokenizer
@@ -72,6 +88,11 @@ def main(argv=None) -> None:
     from skypilot_tpu_torch.utils.device import host_scalars
 
     cfg = configs.get_config(args.model)
+    if args.lora_rank > 0:
+        cfg = dataclasses.replace(
+            cfg, lora_rank=args.lora_rank, lora_alpha=args.lora_alpha,
+            lora_targets=tuple(
+                t.strip() for t in args.lora_targets.split(',') if t))
     trainer = Trainer(
         cfg, device=args.device,
         train_config=TrainConfig(learning_rate=args.lr,
@@ -127,6 +148,9 @@ def main(argv=None) -> None:
             _save(trainer, state, args.ckpt_dir)
     if args.ckpt_dir:
         _save(trainer, state, args.ckpt_dir)
+    if args.lora_rank > 0 and args.adapter_out:
+        trainer.save_adapter(os.path.abspath(args.adapter_out), state)
+        print(f'[train] adapter saved: {args.adapter_out}', flush=True)
     print(f'[train] done at step {state.step}', flush=True)
 
 

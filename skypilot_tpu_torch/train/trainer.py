@@ -9,13 +9,22 @@ first moments), updating params and moments in place. Tied embeddings
 (Gemma) have no ``unembed`` leaf: ``embed`` takes its gradient from the
 gather and the unembedding both.
 
-Not ported here, each raising ``NotImplementedError``: a mesh
-(``mesh``/``mesh_spec``: FSDP/TP/SP sharding over several devices) and
-LoRA (``lora_rank > 0``) (ROADMAP §1 item 12).
+A LoRA config (``lora_rank > 0``) trains only the adapter subtree
+(``lora.split_lora``): only those leaves require grad, so the frozen
+base gets neither a weight gradient nor the memory for one; the
+optimizer's moments are adapter-sized and its weight decay is
+``lora_weight_decay``; the base stays unchanged bit for bit.
+``save_adapter``/``load_adapter`` write and read the adapters alone
+with the reference's ``.lora.json`` sidecar. For serving, the trained
+tree goes through ``multilora.save_adapter`` to the bank's ``.npz``.
+
+Not ported here: a mesh (``mesh``/``mesh_spec``: FSDP/TP/SP sharding
+over several devices) raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
@@ -23,14 +32,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from skypilot_tpu_torch.models import llama, weights
+from skypilot_tpu_torch.models import llama, lora, weights
 from skypilot_tpu_torch.models.configs import ModelConfig, check_supported
 from skypilot_tpu_torch.train.optim import AdamW, AdamWState, tree_map
 from skypilot_tpu_torch.utils.device import (DeviceLike, host_scalars,
                                              resolve_device)
 
-_ROADMAP = 'ROADMAP §1 item 12 (training)'
 CHECKPOINT_FILE = 'state.pt'
+ADAPTER_FILE = 'adapter.pt'
 
 
 class TrainState(NamedTuple):
@@ -53,14 +62,22 @@ class TrainConfig:
     # Adam first-moment dtype; the second moment stays in each param's
     # dtype, as optax keeps it.
     mu_dtype: str = 'float32'
-    lora_weight_decay: float = 0.0      # LoRA is not ported: unused
+    # The adapters' weight decay under LoRA (the frozen base takes no
+    # update at all, so ``weight_decay`` never touches it).
+    lora_weight_decay: float = 0.0
 
 
-def make_optimizer(tc: TrainConfig) -> AdamW:
+def make_optimizer(tc: TrainConfig,
+                   weight_decay: Optional[float] = None) -> AdamW:
+    """The trainer's optimizer; ``weight_decay`` overrides
+    ``tc.weight_decay`` (the LoRA trainer passes
+    ``tc.lora_weight_decay``)."""
     return AdamW(learning_rate=tc.learning_rate,
                  warmup_steps=tc.warmup_steps, total_steps=tc.total_steps,
-                 weight_decay=tc.weight_decay, b1=tc.b1, b2=tc.b2,
-                 grad_clip_norm=tc.grad_clip_norm, mu_dtype=tc.mu_dtype)
+                 weight_decay=(tc.weight_decay if weight_decay is None
+                               else weight_decay),
+                 b1=tc.b1, b2=tc.b2, grad_clip_norm=tc.grad_clip_norm,
+                 mu_dtype=tc.mu_dtype)
 
 
 def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
@@ -98,7 +115,9 @@ def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
 def value_and_grad(params, batch, cfg: ModelConfig, attn_impl: str = 'auto',
                    moe_aux_weight: float = 0.01):
     """(loss, metrics, grads): the gradients of :func:`loss_fn` with
-    respect to every param leaf, in the params' tree and dtypes."""
+    respect to the trainable leaves, in their tree and dtypes: every
+    param leaf, or under ``cfg.lora_enabled`` the adapter subtree only
+    (``lora.split_lora``), the base then entering the loss untracked."""
     leaves = []
 
     def track(p):
@@ -106,10 +125,16 @@ def value_and_grad(params, batch, cfg: ModelConfig, attn_impl: str = 'auto',
         leaves.append(leaf)
         return leaf
 
-    tracked = tree_map(track, params)
+    if cfg.lora_enabled:
+        trainable = lora.split_lora(params)
+        tracked = lora.with_lora(params, tree_map(track, trainable))
+    else:
+        trainable = params
+        tracked = tree_map(track, params)
     loss, metrics = loss_fn(tracked, batch, cfg, attn_impl, moe_aux_weight)
     grads = iter(torch.autograd.grad(loss, leaves))
-    return loss.detach(), metrics, tree_map(lambda _: next(grads), params)
+    return loss.detach(), metrics, tree_map(lambda _: next(grads),
+                                            trainable)
 
 
 class Trainer:
@@ -125,14 +150,14 @@ class Trainer:
         if mesh_spec is not None or mesh is not None:
             raise NotImplementedError(
                 'the port trains on one device; meshes (FSDP/TP/SP) are '
-                f'not ported ({_ROADMAP})')
-        if cfg.lora_rank > 0:
-            raise NotImplementedError(f'LoRA training is not ported '
-                                      f'({_ROADMAP})')
+                'not ported (ROADMAP §1 item 8)')
         self.cfg = check_supported(cfg)
         self.tc = train_config or TrainConfig()
         self.device = resolve_device(device)
-        self.optimizer = make_optimizer(self.tc)
+        self._lora = cfg.lora_enabled
+        self.optimizer = make_optimizer(
+            self.tc, weight_decay=(self.tc.lora_weight_decay
+                                   if self._lora else None))
 
     # ---------------- init / step ----------------
     def init(self, seed: int = 0) -> TrainState:
@@ -141,18 +166,29 @@ class Trainer:
         return self.state_from_params(
             llama.init_params(self.cfg, seed, device=self.device))
 
+    def _trainable(self, params):
+        return lora.split_lora(params) if self._lora else params
+
     def state_from_params(self, params) -> TrainState:
         """Step 0 with the given params (on this trainer's device) and a
-        fresh optimizer state."""
+        fresh optimizer state over the trainable leaves."""
         return TrainState(step=0, params=params,
-                          opt_state=self.optimizer.init(params))
+                          opt_state=self.optimizer.init(
+                              self._trainable(params)))
 
     def init_from_pretrained(self, path: str) -> TrainState:
         """Start training from an HF checkpoint directory (fine-tuning):
         params from the checkpoint in this trainer's config (layout and
-        dtype), a fresh optimizer state."""
-        return self.state_from_params(
-            weights.load_hf_params(path, self.cfg, device=self.device))
+        dtype), a fresh optimizer state. Under LoRA the checkpoint
+        carries no adapters: fresh ones are drawn (seed 0), whose delta
+        is zero."""
+        params = weights.load_hf_params(path, self.cfg, device=self.device)
+        if self._lora and 'lora' not in params['layers']:
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(0)
+            params = lora.with_lora(params, lora.init_lora_layers(
+                self.cfg, gen, device=self.device))
+        return self.state_from_params(params)
 
     def _batch(self, batch) -> Dict[str, torch.Tensor]:
         out = {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v)
@@ -168,12 +204,13 @@ class Trainer:
         """One optimizer step. The state's params and moments are updated
         in place (the input state is consumed, as the reference's jitted
         step donates it). Metrics are 0-d tensors on the device;
-        ``grad_norm`` is the global norm before clipping."""
+        ``grad_norm`` is the global norm before clipping. Under LoRA only
+        the adapters are updated."""
         _, metrics, grads = value_and_grad(
             state.params, self._batch(batch), self.cfg, self.tc.attn_impl,
             self.tc.moe_aux_weight)
         opt_state, metrics['grad_norm'] = self.optimizer.update(
-            grads, state.opt_state, state.params)
+            grads, state.opt_state, self._trainable(state.params))
         return TrainState(step=state.step + 1, params=state.params,
                           opt_state=opt_state), metrics
 
@@ -204,15 +241,12 @@ class Trainer:
     def save_checkpoint(self, path: str, state: TrainState) -> None:
         """``{step, params, opt_state}`` with ``torch.save`` into the
         directory ``path`` (written to a temporary file, then renamed):
-        restoring it and stepping on gives bit-identical params."""
-        os.makedirs(path, exist_ok=True)
+        restoring it and stepping on gives bit-identical params. A LoRA
+        state saves the frozen base, the adapters and their moments."""
         opt = state.opt_state
-        blob = {'step': state.step, 'params': state.params,
-                'opt_state': {'count': opt.count, 'mu': opt.mu,
-                              'nu': opt.nu}}
-        tmp = os.path.join(path, CHECKPOINT_FILE + '.tmp')
-        torch.save(blob, tmp)
-        os.replace(tmp, os.path.join(path, CHECKPOINT_FILE))
+        _save_atomic(path, CHECKPOINT_FILE, {
+            'step': state.step, 'params': state.params,
+            'opt_state': {'count': opt.count, 'mu': opt.mu, 'nu': opt.nu}})
 
     def restore_checkpoint(self, path: str) -> TrainState:
         """The state saved at ``path``, on this trainer's device."""
@@ -222,4 +256,60 @@ class Trainer:
         return TrainState(step=int(blob['step']), params=blob['params'],
                           opt_state=AdamWState(count=int(opt['count']),
                                                mu=opt['mu'], nu=opt['nu']))
+
+    # ---------------- LoRA adapter checkpoints ----------------
+    def _adapter_meta(self) -> Dict[str, Any]:
+        return {'lora_rank': self.cfg.lora_rank,
+                'lora_alpha': self.cfg.lora_alpha,
+                'lora_targets': list(self.cfg.lora_targets)}
+
+    @staticmethod
+    def _adapter_meta_path(path: str) -> str:
+        return path.rstrip('/') + '.lora.json'
+
+    def save_adapter(self, path: str, state: TrainState) -> None:
+        """Adapter-only checkpoint: the LoRA subtree with ``torch.save``
+        into the directory ``path`` (``adapter.pt``, through a temporary
+        file), megabytes instead of the base's gigabytes; beside it the
+        sidecar ``path + '.lora.json'`` records rank, alpha and targets,
+        written as the reference writes it, so a load can refuse an
+        adapter that a wrong alpha would silently mis-scale."""
+        if not self._lora:
+            raise ValueError('save_adapter requires a LoRA config '
+                             '(cfg.lora_rank > 0)')
+        _save_atomic(path, ADAPTER_FILE, lora.split_lora(state.params))
+        with open(self._adapter_meta_path(path), 'w',
+                  encoding='utf-8') as f:
+            json.dump(self._adapter_meta(), f)
+
+    def load_adapter(self, path: str, state: TrainState) -> TrainState:
+        """Swap a saved adapter into ``state`` (the base unchanged, on
+        this trainer's device); the optimizer moments are NOT restored:
+        ``restore_checkpoint`` resumes training exactly."""
+        if not self._lora:
+            raise ValueError('load_adapter requires a LoRA config '
+                             '(cfg.lora_rank > 0)')
+        meta_path = self._adapter_meta_path(path)
+        if os.path.exists(meta_path):
+            with open(meta_path, encoding='utf-8') as f:
+                meta = json.load(f)
+            mine = self._adapter_meta()
+            if meta != mine:
+                raise ValueError(
+                    f'adapter at {path} was trained with {meta}, but '
+                    f'this trainer is configured with {mine}; a '
+                    f'mismatched alpha/rank would silently mis-scale '
+                    f'the fold')
+        adapter = torch.load(os.path.join(path, ADAPTER_FILE),
+                             map_location=self.device, weights_only=True)
+        return state._replace(params=lora.with_lora(state.params, adapter))
+
+
+def _save_atomic(path: str, name: str, blob) -> None:
+    """``torch.save(blob)`` as ``path/name``, through a temporary file
+    renamed into place."""
+    os.makedirs(path, exist_ok=True)
+    tmp = os.path.join(path, name + '.tmp')
+    torch.save(blob, tmp)
+    os.replace(tmp, os.path.join(path, name))
 

@@ -1706,3 +1706,125 @@ def test_adapter_audit_on_card(cuda, kind, spec):
     rep = audit.audit_adapters(kind, speculate_k=spec, device='cuda')
     assert rep.ok(), rep.violations()
     assert rep.adapter_loads > 0 and rep.adapter_evictions > 0
+
+
+# --------------------------------------------------- LoRA fine-tuning
+LORA_TARGETS = ('wq', 'wk', 'wv', 'wo', 'w_gate', 'w_up', 'w_down')
+
+
+def _lora_cfg(remat, dtype=torch.float32, targets=LORA_TARGETS):
+    """A small model the flash kernels take (head_dim 64, GQA 4/2) with
+    rank-4 adapters."""
+    return dataclasses.replace(
+        configs.TINY, dim=256, n_heads=4, n_kv_heads=2, ffn_dim=512,
+        vocab_size=512, dtype=dtype, remat=remat, lora_rank=4,
+        lora_alpha=8.0, lora_targets=targets)
+
+
+def _lora_params(cfg):
+    """CPU params with live adapters (``b`` away from its zeros)."""
+    params = llama.init_params(cfg, 0, device='cpu')
+    gen = torch.Generator().manual_seed(1)
+    for ab in params['layers']['lora'].values():
+        ab['b'].normal_(0.0, 0.05, generator=gen)
+    return params
+
+
+def _lora_batch(cfg, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (2, 129), generator=gen)
+    return {'inputs': toks[:, :-1], 'targets': toks[:, 1:]}
+
+
+def test_lora_step_on_card_matches_cpu(cuda):
+    """fp32 LoRA on the card (K4, K5a, K5b on the CUDA cores) against the
+    plain versions on the CPU from the same params and batch: loss and
+    grad norm within 1e-5 relative and every adapter gradient within
+    1e-4 of the largest (fp32 sums in another order); then one step on
+    the card moves ``b`` and leaves every base leaf bit for bit."""
+    from skypilot_tpu_torch.models import lora
+    from skypilot_tpu_torch.ops import flash_attention as fa
+    from skypilot_tpu_torch.train import trainer as tr
+    from skypilot_tpu_torch.train.optim import global_norm, tree_leaves
+    cfg = _lora_cfg('block')
+    params = _lora_params(cfg)
+    batch = _lora_batch(cfg)
+    cpu_loss, _, cpu_grads = tr.value_and_grad(params, batch, cfg)
+    card = _tree_to(params, 'cuda')
+    fa.reset_launch_counts()
+    loss, _, grads = tr.value_and_grad(
+        card, {k: v.cuda() for k, v in batch.items()}, cfg)
+    torch.cuda.synchronize()
+    L = cfg.n_layers
+    assert fa.launch_counts == {'flash_fwd': 2 * L, 'flash_fwd_chunk': 0,
+                                'flash_bwd_dkv': L, 'flash_bwd_dq': L}
+    assert abs(float(loss) - float(cpu_loss)) <= 1e-5 * abs(float(cpu_loss))
+    assert abs(float(global_norm(grads)) - float(global_norm(cpu_grads))) \
+        <= 1e-5 * float(global_norm(cpu_grads))
+    scale = max(float(g.abs().max()) for g in tree_leaves(cpu_grads))
+    for g, w in zip(tree_leaves(grads), tree_leaves(cpu_grads)):
+        assert (g.cpu() - w).abs().max().item() <= 1e-4 * scale
+    trainer = tr.Trainer(cfg, device='cuda', train_config=tr.TrainConfig(
+        learning_rate=1e-3, warmup_steps=0, total_steps=4))
+    state = trainer.state_from_params(card)
+    base = [t.clone() for t in tree_leaves(
+        {k: v for k, v in card.items() if k != 'layers'})] + [
+        t.clone() for k, t in card['layers'].items() if k != 'lora']
+    b0 = card['layers']['lora']['wq']['b'].clone()
+    state, m = trainer.step(state, batch)
+    assert bool(torch.isfinite(m['loss']))
+    after = [t for t in tree_leaves(
+        {k: v for k, v in state.params.items() if k != 'layers'})] + [
+        t for k, t in state.params['layers'].items() if k != 'lora']
+    assert all(torch.equal(a, b) for a, b in zip(after, base))
+    assert not torch.equal(lora.split_lora(state.params)['wq']['b'], b0)
+
+
+def _tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+def test_lora_remat_policies_equal_on_card(cuda, dtype):
+    """The same LoRA gradients under 'none', 'block', 'attn' and 'dots'
+    on the card, bit for bit (K4, K5a and K5b sum in a fixed order, no
+    atomics); K4 launches 2L times under 'block' and 'dots' and L times
+    under 'none' and 'attn'."""
+    from skypilot_tpu_torch.ops import flash_attention as fa
+    from skypilot_tpu_torch.train import trainer as tr
+    from skypilot_tpu_torch.train.optim import tree_leaves
+    params = _tree_to(_lora_params(_lora_cfg('none', dtype)), 'cuda')
+    batch = {k: v.cuda() for k, v in _lora_batch(_lora_cfg('none')).items()}
+    runs = {}
+    for remat in ('none', 'block', 'attn', 'dots'):
+        cfg = _lora_cfg(remat, dtype)
+        fa.reset_launch_counts()
+        runs[remat] = tr.value_and_grad(params, batch, cfg)
+        torch.cuda.synchronize()
+        L = cfg.n_layers
+        assert fa.launch_counts['flash_fwd'] == (
+            2 * L if remat in ('block', 'dots') else L), remat
+        assert fa.launch_counts['flash_bwd_dkv'] == L
+        assert fa.launch_counts['flash_bwd_dq'] == L
+    for remat in ('block', 'attn', 'dots'):
+        assert torch.equal(runs[remat][0], runs['none'][0]), remat
+        for a, b in zip(tree_leaves(runs[remat][2]),
+                        tree_leaves(runs['none'][2])):
+            assert torch.equal(a, b), remat
+
+
+def test_lora_first_layer_skips_unneeded_backward_kernels(cuda):
+    """Adapters on wq alone: layer 0's k and v need no gradient, so its
+    K5a (dk, dv) is not launched; every layer launches K5b."""
+    from skypilot_tpu_torch.ops import flash_attention as fa
+    from skypilot_tpu_torch.train import trainer as tr
+    cfg = _lora_cfg('attn', targets=('wq',))
+    params = _tree_to(_lora_params(cfg), 'cuda')
+    fa.reset_launch_counts()
+    tr.value_and_grad(params, {k: v.cuda() for k, v in
+                               _lora_batch(cfg).items()}, cfg)
+    torch.cuda.synchronize()
+    assert fa.launch_counts['flash_bwd_dkv'] == cfg.n_layers - 1
+    assert fa.launch_counts['flash_bwd_dq'] == cfg.n_layers

@@ -2,8 +2,8 @@
 ``skypilot_tpu/models/lora.py`` on the same numpy trees, and both
 engines serving a LoRA tree as its merged model (the fold runs before
 quantization; folding into an int8 base is refused with the reference's
-message). LoRA training stays refused (``check_supported`` without
-``serving``, the trainer)."""
+message). ``check_supported`` accepts a LoRA config, which trains
+(``tests/test_torch_lora_train.py``) and is served merged."""
 import dataclasses
 
 import jax
@@ -149,12 +149,13 @@ def test_resolve_targets_and_maybe_merge_match_reference():
 
 
 def test_check_supported_serving_path():
-    """``lora_rank > 0`` passes on the serving path only; the engines
-    serve the merged (LoRA-off) config."""
+    """``lora_rank > 0`` passes ``check_supported`` (training and serving
+    alike, so it has no serving switch any more); the engines serve the
+    merged (LoRA-off) config."""
     _, tcfg = _cfgs('fp32')
-    with pytest.raises(NotImplementedError):
-        tconfigs.check_supported(tcfg)
-    assert tconfigs.check_supported(tcfg, serving=True) is tcfg
+    assert tconfigs.check_supported(tcfg) is tcfg
+    with pytest.raises(TypeError):
+        tconfigs.check_supported(tcfg, serving=True)
     assert serving_config(tcfg).lora_rank == 0
 
 

@@ -113,8 +113,8 @@ def test_init_params_layout_and_scale():
 def test_configs_match_and_unsupported_knobs_raise():
     """Every preset of the reference, the MoE ones included, is in the
     port with the same numbers, ``flops_per_token`` (active experts
-    only) included; LoRA configs raise, the family and MoE knobs do
-    not."""
+    only) included; LoRA configs, the family and MoE knobs pass, an
+    unknown activation raises."""
     names = sorted(jconfigs.PRESETS)
     assert sorted(tconfigs.PRESETS) == names and len(names) == 12
     fields = ('vocab_size', 'dim', 'n_layers', 'n_heads', 'n_kv_heads',
@@ -133,6 +133,8 @@ def test_configs_match_and_unsupported_knobs_raise():
     assert tconfigs.GEMMA_7B.head_dim == 192      # as the reference has it
     moe = dataclasses.replace(tconfigs.TINY, n_experts=4)
     assert tconfigs.check_supported(moe) is moe
-    with pytest.raises(NotImplementedError):
+    lora_cfg = dataclasses.replace(tconfigs.TINY, lora_rank=4)
+    assert tconfigs.check_supported(lora_cfg) is lora_cfg
+    with pytest.raises(ValueError):
         tconfigs.check_supported(dataclasses.replace(tconfigs.TINY,
-                                                     lora_rank=4))
+                                                     activation='relu'))

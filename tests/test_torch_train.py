@@ -1,7 +1,7 @@
 """The port's training path held against the JAX package on the CPU.
 
-- The trainer: ``TINY`` in fp32 with ``remat`` 'none' and 'block', the
-  JAX ``Trainer`` on a one-device mesh (``attn_impl='xla'``: on the CPU
+- The trainer: ``TINY`` in fp32 with every ``remat`` policy ('none',
+  'block', 'attn', 'dots'), the JAX ``Trainer`` on a one-device mesh (``attn_impl='xla'``: on the CPU
   the JAX flash path would compile Mosaic) against the port's
   ``Trainer(device='cpu')`` with ``attn_impl`` 'xla' and 'flash' (the
   autograd Function over the plain forward and backward), from the same
@@ -21,6 +21,12 @@
   measured), bf16 leaves within one bf16 rounding (2^-8 relative).
 - The corpus pipeline array for array, checkpoint resume bit for bit,
   and the command line (train, checkpoint, resume) on the CPU.
+- The remat policies: gradients under 'block', 'attn' and 'dots' equal
+  'none' bit for bit (dense and ``tiny-moe``, full and LoRA training:
+  a policy only chooses what is kept and what recomputed, and the CPU
+  recomputes the same sums); the attention forward runs again in the
+  backward once a layer under 'block' and 'dots' and never under
+  'attn'; 'dots' recomputes no weight product.
 """
 import dataclasses
 import functools
@@ -34,6 +40,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from skypilot_tpu.models import configs as jconfigs
 from skypilot_tpu.models.tokenizer import load_tokenizer as jload_tokenizer
@@ -95,7 +102,7 @@ def _jax_run(remat):
 
 
 @pytest.mark.parametrize('impl', ['xla', 'flash'])
-@pytest.mark.parametrize('remat', ['none', 'block'])
+@pytest.mark.parametrize('remat', ['none', 'block', 'attn', 'dots'])
 def test_trainer_matches_jax(remat, impl):
     params0, grads0, want_metrics, want_params = _jax_run(remat)
     cfg = _tcfg(remat)
@@ -304,9 +311,11 @@ def test_forward_aux_and_remat_policies():
              for r in ('none', 'block')}
     for a, b in zip(tree_leaves(grads['none']), tree_leaves(grads['block'])):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
-    for remat in ('attn', 'dots'):
-        with pytest.raises(NotImplementedError):
-            llama.forward(params, tokens, _tcfg(remat))
+    # Every policy runs the same forward without autograd.
+    with torch.no_grad():
+        for remat in ('block', 'attn', 'dots'):
+            assert torch.equal(llama.forward(params, tokens, _tcfg(remat)),
+                               logits)
     with pytest.raises(ValueError):
         llama.forward(params, tokens, _tcfg('everything'))
 
@@ -315,9 +324,100 @@ def test_unported_training_options_raise(tmp_path):
     cfg = _tcfg('none')
     with pytest.raises(NotImplementedError):
         ttrainer.Trainer(cfg, mesh_spec=object(), device='cpu')
-    with pytest.raises(NotImplementedError):
-        ttrainer.Trainer(dataclasses.replace(cfg, lora_rank=4), device='cpu')
+    # LoRA is ported: a LoRA config builds a trainer.
+    trainer = ttrainer.Trainer(dataclasses.replace(cfg, lora_rank=4),
+                               device='cpu')
+    assert trainer.init(0).params['layers']['lora']
     corpus = _corpus(tmp_path)[0]
-    for flags in (['--lora-rank', '8'], ['--tp', '2'], ['--sp', '2']):
+    for flags in (['--tp', '2'], ['--sp', '2']):
         with pytest.raises(NotImplementedError):
             train_main(['--device', 'cpu', '--data', corpus] + flags)
+
+
+def _remat_cfg(name, remat, lora_rank):
+    targets = ('wq', 'wk', 'wv', 'wo') + (
+        () if name == 'tiny-moe' else ('w_gate', 'w_up', 'w_down'))
+    return dataclasses.replace(
+        tconfigs.get_config(name), dtype=torch.float32, remat=remat,
+        lora_rank=lora_rank, lora_alpha=8.0, lora_targets=targets)
+
+
+def _live_params(cfg):
+    """Params with live adapters (``b`` away from its zeros)."""
+    params = llama.init_params(cfg, 0, device='cpu')
+    gen = torch.Generator().manual_seed(1)
+    for ab in params['layers'].get('lora', {}).values():
+        ab['b'].normal_(0.0, 0.2, generator=gen)
+    return params
+
+
+@pytest.mark.parametrize('lora_rank', [0, 4], ids=['full', 'lora'])
+@pytest.mark.parametrize('name', ['tiny', 'tiny-moe'])
+@pytest.mark.parametrize('impl', ['xla', 'flash'])
+def test_remat_policies_give_bit_identical_grads(impl, name, lora_rank):
+    params = _live_params(_remat_cfg(name, 'none', lora_rank))
+    batch = {k: torch.from_numpy(v) for k, v in _batches(1)[0].items()}
+    runs = {r: ttrainer.value_and_grad(
+        params, batch, _remat_cfg(name, r, lora_rank), impl)
+        for r in ('none', 'block', 'attn', 'dots')}
+    loss0, metrics0, grads0 = runs['none']
+    for remat in ('block', 'attn', 'dots'):
+        loss, metrics, grads = runs[remat]
+        assert torch.equal(loss, loss0), remat
+        assert torch.equal(metrics['moe_aux_loss'],
+                           metrics0['moe_aux_loss']), remat
+        for a, b in zip(tree_leaves(grads), tree_leaves(grads0)):
+            assert torch.equal(a, b), remat
+    if name == 'tiny-moe':      # the aux loss flows out of every segment
+        assert float(metrics0['moe_aux_loss']) > 0
+        if not lora_rank:
+            assert grads0['layers']['router'].abs().sum() > 0
+
+
+class _CountOps(TorchDispatchMode):
+    """ATen ops run while active, by op name."""
+
+    def __init__(self):
+        super().__init__()
+        self.counts = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = str(func.overloadpacket)
+        self.counts[name] = self.counts.get(name, 0) + 1
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize('remat,attn_fwd', [('none', 0), ('block', 2),
+                                            ('attn', 0), ('dots', 2)])
+def test_attention_forward_reruns_in_backward(monkeypatch, remat,
+                                              attn_fwd):
+    """The flash forward is called once a layer (L = 2) during the
+    backward under 'block' and 'dots' and never under 'none' and
+    'attn'; 'dots' multiplies the weights no more often in the backward
+    than 'none' does (its saved products come back from the cache),
+    'block' and 'attn' do (they recompute them)."""
+    from skypilot_tpu_torch.ops import flash_attention as fa
+    cfg = _remat_cfg('tiny', remat, 4)
+    params = _live_params(cfg)
+    calls = []
+    real_fwd = fa.flash_attention_fwd
+
+    def fwd(*args, **kwargs):
+        calls.append(torch.is_grad_enabled())
+        return real_fwd(*args, **kwargs)
+
+    monkeypatch.setattr(fa, 'flash_attention_fwd', fwd)
+    leaves = [t.requires_grad_(True) for t in tree_leaves(
+        params['layers']['lora'])]
+    tokens = torch.from_numpy(_batches(1)[0]['inputs']).long()
+    loss = llama.forward(params, tokens, cfg, attn_impl='flash').sum()
+    assert len(calls) == cfg.n_layers
+    with _CountOps() as ops:
+        torch.autograd.grad(loss, leaves)
+    assert len(calls) - cfg.n_layers == attn_fwd
+    mm_bwd = ops.counts.get('aten.mm', 0)
+    # 'none' runs 12 weight-gradient and input-gradient products here;
+    # a policy that recomputes the layer's 3 + 1 + 3 weight products
+    # (and nothing else is an ``mm``) runs 7 more a layer.
+    extra = {'none': 0, 'dots': 0, 'block': 7, 'attn': 7}[remat]
+    assert mm_bwd == 12 + extra * cfg.n_layers, ops.counts
