@@ -146,7 +146,8 @@ Phases, one JSON line each; any failure exits non-zero:
    per kind the client TTFT and TPOT, beside the same requests with
    every one in the throughput tier; every request brings its count and
    the latency tier admits all of its own. serve_sched_slot — the same
-   at a quarter of the counts on the slot engine (K4/K3 prefill).
+   at a quarter of the counts on the slot engine (K4/K3 prefill), at
+   16 of the 32 layers (CUT_LAYERS, for the time limit).
    sched_shed — ``max_queue_tokens=2048`` and 28 requests of 128 work
    tokens at once (both halved: ``reduced``): every refusal a 429 with an integer ``Retry-After`` >= 1,
    ``skytpu_sched_shed_total`` in the Prometheus text equal to the
@@ -212,6 +213,21 @@ Phases, one JSON line each; any failure exits non-zero:
    the line carries the NCCL version, captures and replays, K1
    launches and both engines' TPOT. ``multi_card: false``: the machine
    has one card, and NCCL refuses two ranks on one GPU.
+   serve_mesh1_opts — the serving options on the same one-rank NCCL
+   mesh, each case on the weights already on the card and held bit for
+   bit against a meshless engine with the same params and options (4
+   of serve's prompts x 16 new tokens): 'bank' (llama2-7b bf16, paged,
+   K1, a bank of two adapters, two base rows) and 'spec_slot' (the slot
+   engine at speculate_k 4: K3 at sq 5 once a layer a round, the
+   rounds' commits and accepted counts the meshless engine's) after
+   serve_mesh1; 'w8a8' (serve_int8's weights with prefill_w8a8, K1
+   int8, the int8 GEMM; one prefill's logits equal and its census with
+   a MAX all-reduce before each row-parallel product) after w8a8_slot;
+   'moe' (mixtral-8x7b int8 at serve_moe's depth, K1 int8) after
+   serve_moe. Each line carries the census of the last replayed decode
+   step and merge (or verify round) beside ``audit.expected_census``,
+   its launches and the card label; ``serving_mesh(tp=2)`` must still
+   raise on one card.
    costmodel_check — the cost model against the card (after the bf16
    ``decode_graphs``, then on the int8 weights after the int8 ones): a
    llama2-7b paged engine (K1) with the 8 requests seated takes one
@@ -330,11 +346,12 @@ for K6, ``kv_handoff``, ``kv_handoff_slot`` and ``kv_checkpoint``, and
 ``serve_sched``, ``serve_sched_slot``, ``sched_shed``, ``sched_drain``,
 ``disagg_relay``, ``serve_lora`` and ``serve_lora_slot``, and
 ``lora_train``, ``lora_remat`` and ``lora_serve``, ``serve_w8a8``,
-``w8a8_slot``, ``fault_watchdog`` and ``serve_mesh1``),
+``w8a8_slot``, ``fault_watchdog``, ``serve_mesh1`` and
+``serve_mesh1_opts``),
 with the counts set to 0 just before each; ``launches_by_path`` splits a kernel's count by
 phase. The time limit cut ``kv_handoff``, ``sched_drain``,
-``disagg_relay`` and ``lora_check``'s bf16 part to 16 of llama2-7b's 32
-layers (CUT_LAYERS, ``reduced`` on their lines), serve_moe to 8 of 32
+``disagg_relay``, ``serve_sched_slot`` (since PR 19) and ``lora_check``'s
+bf16 part to 16 of llama2-7b's 32 layers (CUT_LAYERS, ``reduced`` on their lines), serve_moe to 8 of 32
 and serve_int4 to 20 of 80 (BIG_SERVE_LAYERS). Launches made to compare
 or time a kernel do not count.
 Phases 12-15 report their own launches on their own lines.
@@ -1518,8 +1535,9 @@ def _prompts(seed, vocab):
     return [[int(t) for t in rng.integers(3, vocab, n)] for n in PROMPT_LENS]
 
 
-CUT_LAYERS = 16     # depth of the kv_handoff, sched_drain, disagg_relay and
-                    # lora_check 7B models, cut for the time limit
+CUT_LAYERS = 16     # depth of the kv_handoff, sched_drain, disagg_relay,
+                    # serve_sched_slot and lora_check 7B models, cut for
+                    # the time limit
 
 
 def _cut_7b(params):
@@ -2971,6 +2989,213 @@ def phase_serve_mesh1(torch, seed, params):
     return k1
 
 
+MESH_OPTS_REQUESTS = 4        # serve_mesh1_opts: the first 4 prompts of
+MESH_OPTS_NEW = 16            # serve's, 16 new tokens each
+
+
+def _mesh_opts_case(torch, case, cfg, params, reqs, *, kind='paged',
+                    adapters=None, prefill_tokens=None, extra=None,
+                    **opts):
+    """One case of serve_mesh1_opts: ``reqs`` ((prompt, request kwargs)
+    pairs, MESH_OPTS_NEW new tokens each) on a meshless engine of
+    ``kind`` with ``opts``, then on a one-rank NCCL mesh engine with the
+    same params and options (``adapters``, {name: tree}, registered on
+    both first). The mesh engine's streams must equal the meshless
+    one's bit for bit (a one-rank mesh slices nothing and its
+    collectives are copies), and the census of its last replayed graph
+    of each label (a decode step and its merge, or a verify round) must
+    be ``audit.expected_census``. With ``prefill_tokens`` one prefill's
+    logits (``prefill_logits``) must be equal too, and its census
+    ``audit.expected_prefill_census``. The launch counts are set to 0
+    just before the mesh engine's requests and read just after. Returns
+    the case's line."""
+    from skypilot_tpu_torch.analysis import audit
+    from skypilot_tpu_torch.inference import graphs
+    from skypilot_tpu_torch.inference.engine import InferenceEngine
+    from skypilot_tpu_torch.inference.paged import PagedInferenceEngine
+    from skypilot_tpu_torch.models import quantization as q
+    from skypilot_tpu_torch.ops import flash_attention as fa
+    from skypilot_tpu_torch.ops import paged_attention as pa
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    cls = PagedInferenceEngine if kind == 'paged' else InferenceEngine
+    kw = dict(max_batch=8, max_seq=2048, device='cuda', **opts)
+    if kind == 'paged':
+        kw.update(n_pages=MESH1_N_PAGES, decode_impl='pallas')
+    saved = graphs._snapshot()
+
+    def drive(eng):
+        for name, tree in (adapters or {}).items():
+            eng.register_adapter(name, tree, 1.0)
+        rids = [eng.add_request(list(p), max_new_tokens=MESH_OPTS_NEW, **r)
+                for p, r in reqs]
+        t0 = time.monotonic()
+        done = eng.run_to_completion(horizon=16)
+        torch.cuda.synchronize()
+        return [done[r].output for r in rids], time.monotonic() - t0
+
+    ref = cls(cfg, params, **kw)
+    want, ref_wall = drive(ref)
+    ref_spec = ref.spec_metrics()
+    ref_logits = (ref.prefill_logits(prefill_tokens)
+                  if prefill_tokens is not None else None)
+    del ref
+    _release(torch)
+    mesh = mesh_lib.make_mesh(mesh_lib.MeshSpec.for_serving(1, 1),
+                              device='cuda')
+    try:
+        eng = cls(cfg, params, mesh=mesh, **kw)
+        census = {}
+        audit._record_collectives(eng, census)
+        pa.reset_launch_counts()
+        fa.reset_launch_counts()
+        q.reset_launch_counts()
+        got, wall = drive(eng)
+        launches = {**pa.launch_counts, **fa.launch_counts}
+        k3_by_sq = dict(fa.chunk_launches_by_sq)
+        int_mm = q.launch_counts['int_mm']
+        del eng._run_graph
+        expected = audit.expected_census(eng)
+        spec = eng.spec_metrics()
+        prefill = {}
+        if prefill_tokens is not None:
+            mesh_lib.reset_collective_counts()
+            logits = eng.prefill_logits(prefill_tokens)
+            prefill = {'census': dict(mesh_lib.collective_counts),
+                       'census_expected': audit.expected_prefill_census(
+                           eng),
+                       'logits_equal_meshless': bool(
+                           (logits == ref_logits).all())}
+        stats = eng.graph_stats()
+        eng.close()
+        del eng
+    finally:
+        mesh.shutdown()
+    graphs._restore(saved)
+    _release(torch)
+    line = {'phase': 'serve_mesh1_opts', 'case': case, 'model': cfg.name,
+            'n_layers': cfg.n_layers, 'kv_cache': kind,
+            'mesh': {'tp': 1, 'dp': 1, 'backend': 'nccl'},
+            'options': dict(opts),
+            'requests': len(reqs), 'new_tokens': MESH_OPTS_NEW,
+            'streams_equal_meshless': got == want,
+            'census': census, 'census_expected': expected,
+            'kernel_launches': {k: n for k, n in launches.items() if n},
+            'k3_launches_by_sq': k3_by_sq, 'int_mm_launches': int_mm,
+            'graph_captures': stats['graph_captures'],
+            'graph_replays': stats['graph_replays'],
+            'wall_s': {'mesh': wall, 'meshless': ref_wall},
+            'card': _card_label(), **(extra or {})}
+    if opts.get('speculate_k'):
+        line['spec'] = {'mesh': spec, 'meshless': ref_spec}
+    if prefill:
+        line['prefill'] = prefill
+    emit(line)
+    require(got == want, f'serve_mesh1_opts[{case}]: mesh streams differ '
+                         'from the meshless engine')
+    require(census and all(census.get(k) == v for k, v in expected.items()),
+            f'serve_mesh1_opts[{case}]: census {census} != {expected}')
+    require(stats['graph_replays'] > 0,
+            f'serve_mesh1_opts[{case}]: no graph replays')
+    if opts.get('speculate_k'):
+        require(spec == ref_spec and spec['spec_accepted'] > 0,
+                f'serve_mesh1_opts[{case}]: speculation {spec} != the '
+                f'meshless {ref_spec}')
+    if prefill:
+        require(prefill['census'] == prefill['census_expected']
+                and prefill['logits_equal_meshless'],
+                f'serve_mesh1_opts[{case}]: prefill {prefill}')
+    return line
+
+
+def phase_serve_mesh1_opts(torch, seed, case, params, cfg=None,
+                           reduced=None):
+    """The serving options on the one-rank NCCL mesh (``serve_mesh1``'s
+    mesh), each on the weights already on the card, held bit for bit
+    against a meshless engine with the same params and options
+    (``_mesh_opts_case``):
+
+    - 'bank': llama2-7b bf16, paged, K1, a bank of two adapters with two
+      base rows among the requests;
+    - 'spec_slot': the slot engine with ``speculate_k=SPEC_K`` on the
+      spec prompts: K3 at sq = k + 1 once a layer a round, and the
+      rounds' commits and accepted counts equal the meshless engine's;
+    - 'w8a8': the int8 weights of ``serve_int8`` with ``prefill_w8a8``,
+      paged, K1 int8: the int8 GEMM runs, and one prefill's logits and
+      census (a MAX all-reduce before each row-parallel product) are
+      checked too;
+    - 'moe': mixtral-8x7b int8 at full width and serve_moe's depth
+      (``reduced``), paged, K1 int8.
+
+    ``serving_mesh(tp=2)`` must still raise on one card. Returns the
+    case's launches of its path kernel: K1 for the paged cases, K3 (and
+    K4, the slot engine's first prefill chunks) for 'spec_slot'."""
+    from skypilot_tpu_torch.models import configs
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    try:
+        mesh_lib.serving_mesh(tp=2, device='cuda')
+        refused = False
+    except ValueError:
+        refused = True
+    require(refused or torch.cuda.device_count() >= 2,
+            'serving_mesh(tp=2) did not raise on one card')
+    extra = {'serving_mesh_tp2_refused': refused}
+    cfg = cfg or configs.LLAMA2_7B
+    prompts = _prompts(seed, cfg.vocab_size)[:MESH_OPTS_REQUESTS]
+    if case == 'bank':
+        trees = {f'm{i}': _lora_tree(cfg, seed * 1000 + 50 + i)
+                 for i in range(2)}
+        reqs = [(p, {'adapter': 'm0'} if i == 0 else
+                 {'adapter': 'm1'} if i == 2 else {})
+                for i, p in enumerate(prompts)]
+        line = _mesh_opts_case(
+            torch, case, cfg, params, reqs, adapters=trees,
+            extra=dict(extra, weights='bfloat16', adapter_rows=2,
+                       base_rows=2),
+            adapter_slots=2, adapter_rank=LORA_RANK)
+        k1 = line['kernel_launches'].get('paged_decode_attention[bf16]', 0)
+        require(k1 > 0, 'serve_mesh1_opts[bank]: K1 never launched')
+        return {'paged_decode_attention[bf16]': k1}
+    if case == 'spec_slot':
+        reqs = [(p, {}) for p in
+                _spec_prompts(seed, cfg.vocab_size)[:MESH_OPTS_REQUESTS]]
+        line = _mesh_opts_case(
+            torch, case, cfg, params, reqs, kind='slot',
+            extra=dict(extra, weights='bfloat16',
+                       spec_prompts=f'{SPEC_SEGMENT}-token segment '
+                                    'repeated'),
+            speculate_k=SPEC_K)
+        k3 = line['k3_launches_by_sq'].get(SPEC_K + 1, 0)
+        rounds = line['spec']['mesh']['spec_rounds']
+        require(k3 > 0 and k3 == cfg.n_layers * rounds,
+                f'serve_mesh1_opts[spec_slot]: K3 launches at sq='
+                f'{SPEC_K + 1} {k3} != n_layers x rounds {rounds}')
+        return {'flash_fwd_chunk':
+                    line['kernel_launches'].get('flash_fwd_chunk', 0),
+                'flash_fwd': line['kernel_launches'].get('flash_fwd', 0)}
+    if case == 'w8a8':
+        import numpy as np
+        tokens = np.asarray(prompts[0][:64], np.int32)[None]
+        line = _mesh_opts_case(
+            torch, case, cfg, params, [(p, {}) for p in prompts],
+            prefill_tokens=tokens,
+            extra=dict(extra, weights='int8'), prefill_w8a8=True)
+        k1 = line['kernel_launches'].get('paged_decode_attention[int8]', 0)
+        require(k1 > 0 and line['int_mm_launches'] > 0,
+                f'serve_mesh1_opts[w8a8]: K1 {k1}, int8 GEMMs '
+                f'{line["int_mm_launches"]}')
+        return {'paged_decode_attention[int8]': k1}
+    if case == 'moe':
+        line = _mesh_opts_case(
+            torch, case, cfg, params, [(p, {}) for p in prompts],
+            extra=dict(extra, weights='int8',
+                       weights_built_on_card_from_seed=True,
+                       reduced=reduced))
+        k1 = line['kernel_launches'].get('paged_decode_attention[int8]', 0)
+        require(k1 > 0, 'serve_mesh1_opts[moe]: K1 never launched')
+        return {'paged_decode_attention[int8]': k1}
+    raise ValueError(f'unknown serve_mesh1_opts case {case!r}')
+
+
 def _card_label():
     return subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
@@ -3472,7 +3697,7 @@ def _tier_block(port):
 
 
 def phase_serve_sched(torch, seed, params, kv_cache='paged',
-                      phase='serve_sched', scale=1):
+                      phase='serve_sched', scale=1, cut=False):
     """The SLO scheduler on llama2-7b at full width (the ``serve``
     weights), 8 slots: SCHED_TP throughput-tier requests (512-1024-token
     prompts, 128 new tokens) at once, then SCHED_LAT latency-tier
@@ -3483,16 +3708,23 @@ def phase_serve_sched(torch, seed, params, kv_cache='paged',
     tiered run must admit every latency request in the latency tier. The
     paged engine decodes on K1 (once per layer per decode step, no other
     kernel), the slot engine prefills on K4/K3 (once per layer per
-    prefill call). Returns the launches of the tiered run by kernel."""
+    prefill call). ``cut`` serves CUT_LAYERS of the 32 layers
+    (``_cut_7b``). Returns the launches of the tiered run by kernel."""
     from skypilot_tpu_torch.ops import flash_attention as fa
     from skypilot_tpu_torch.ops import paged_attention as pa
+    model, reduced = 'llama2-7b', {}
+    if cut:
+        model, params, reduced = _cut_7b(params)
+    if scale > 1:
+        reduced = dict(reduced, requests_divided_by=scale)
     n_tp, n_lat = SCHED_TP[0] // scale, SCHED_LAT[0] // scale
     tp, lat = _sched_prompts(seed, 32000, n_tp, n_lat)
     card = _card_label()
     runs, launches = {}, None
     for tiered in (True, False):
         torch.cuda.reset_peak_memory_stats()
-        srv, port = _sched_server(params, seed, kv_cache=kv_cache)
+        srv, port = _sched_server(params, seed, cfg=model,
+                                  kv_cache=kv_cache)
         try:
             eng = srv.engine
             steps0 = eng.decode_substeps
@@ -3532,7 +3764,7 @@ def phase_serve_sched(torch, seed, params, kv_cache='paged',
         del eng, srv
         _release(torch)
     emit({'phase': phase, 'card': card, 'model': 'llama2-7b',
-          'reduced': {'requests_divided_by': scale} if scale > 1 else None,
+          'reduced': reduced or None,
           'kv_cache': kv_cache, 'kv_cache_dtype': 'bf16', 'max_batch': 8,
           'throughput_requests': [n_tp, list(SCHED_TP[1]), SCHED_TP[2]],
           'latency_requests': [n_lat, list(SCHED_LAT[1]), SCHED_LAT[2]],
@@ -6074,7 +6306,8 @@ def main(argv=None) -> int:
             'paged_decode_attention[bf16]']
         sched_slot = phase_serve_sched(torch, args.seed, bf16_params,
                                        kv_cache='slot',
-                                       phase='serve_sched_slot', scale=4)
+                                       phase='serve_sched_slot', scale=4,
+                                       cut=True)
         shed_k1 = phase_sched_shed(torch, args.seed, bf16_params)
         drain_k1 = phase_sched_drain(torch, args.seed, bf16_params)
         relay_k1 = phase_disagg_relay(torch, args.seed, bf16_params)
@@ -6090,6 +6323,10 @@ def main(argv=None) -> int:
         phase_grammar_check(torch, args.seed, bf16_params)
         fault_k1 = phase_fault_watchdog(torch, args.seed, bf16_params)
         mesh1_k1 = phase_serve_mesh1(torch, args.seed, bf16_params)
+        mesh_opts = phase_serve_mesh1_opts(torch, args.seed, 'bank',
+                                           bf16_params)
+        mesh_opts.update(phase_serve_mesh1_opts(torch, args.seed,
+                                                'spec_slot', bf16_params))
         del bf16_params
         _release(torch)
         phase_decode_audits(torch)
@@ -6117,6 +6354,9 @@ def main(argv=None) -> int:
             weights='int8', prefill_w8a8=True, kv_cache_dtype='bf16',
             extra={'prefill_w8a8': True, 'card': _card_label(),
                    'serve_slot': _beside(slot_rec)})
+        mesh_int8_k1 = phase_serve_mesh1_opts(
+            torch, args.seed, 'w8a8', int8_params)[
+                'paged_decode_attention[int8]']
         del int8_params
         _release(torch)
         phase_reference(torch, args.seed)
@@ -6126,11 +6366,16 @@ def main(argv=None) -> int:
         phase_checkpoints(torch, args.seed)
         phase_moe_int4_check(torch, args.seed)
         moe_cfg, moe_cut = _big_serve_cfg('mixtral-8x7b')
-        moe_launches, _ = phase_serve(
+        moe_launches, moe_params = phase_serve(
             torch, args.seed, 'serve_moe', model=moe_cfg,
-            quantize='int8', decode_impl='pallas',
+            quantize='int8', decode_impl='pallas', keep_params=True,
             extra={'weights_built_on_card_from_seed': True,
                    'reduced': moe_cut})
+        mesh_int8_k1 += phase_serve_mesh1_opts(
+            torch, args.seed, 'moe', moe_params, cfg=moe_cfg,
+            reduced=moe_cut)['paged_decode_attention[int8]']
+        del moe_params
+        _release(torch)
         int4_cfg, int4_cut = _big_serve_cfg('llama3-70b')
         int4_launches, _ = phase_serve(
             torch, args.seed, 'serve_int4', model=int4_cfg,
@@ -6153,7 +6398,8 @@ def main(argv=None) -> int:
                                + kv_launches['paged_decode_attention[bf16]']
                                + ckpt_k1 + sched_k1 + shed_k1 + drain_k1
                                + relay_k1 + lora_k1 + lora_serve_k1
-                               + fault_k1 + mesh1_k1,
+                               + fault_k1 + mesh1_k1
+                               + mesh_opts['paged_decode_attention[bf16]'],
                                worst['paged_decode'], times['paged_decode']),
                  launches_by_path={
                      'serve': bf16_launches,
@@ -6168,12 +6414,14 @@ def main(argv=None) -> int:
                      'serve_lora': lora_k1,
                      'lora_serve': lora_serve_k1,
                      'fault_watchdog': fault_k1,
-                     'serve_mesh1': mesh1_k1}),
+                     'serve_mesh1': mesh1_k1,
+                     'serve_mesh1_opts':
+                         mesh_opts['paged_decode_attention[bf16]']}),
             dict(_kernel_entry('paged_decode_int8', 'paged_decode.cu',
                                'paged_attention.py:103',
                                int8_launches + moe_launches
                                + kv_launches['paged_decode_attention[int8]']
-                               + w8a8_k1,
+                               + w8a8_k1 + mesh_int8_k1,
                                worst['paged_decode_int8'],
                                times['paged_decode_int8']),
                  launches_by_path={
@@ -6181,7 +6429,8 @@ def main(argv=None) -> int:
                      'serve_moe': moe_launches,
                      'kv_handoff':
                          kv_launches['paged_decode_attention[int8]'],
-                     'serve_w8a8': w8a8_k1}),
+                     'serve_w8a8': w8a8_k1,
+                     'serve_mesh1_opts': mesh_int8_k1}),
             dict(_kernel_entry('paged_decode_int4', 'paged_decode.cu',
                                'paged_attention.py:65',
                                variants['paged_decode_attention[int4]']
@@ -6215,7 +6464,8 @@ def main(argv=None) -> int:
                                'flash_attention.py:159',
                                k3_launches + k3_verify_launches + kv_k3
                                + sched_slot['flash_fwd_chunk']
-                               + lora_slot['flash_fwd_chunk'] + w8a8_k3,
+                               + lora_slot['flash_fwd_chunk'] + w8a8_k3
+                               + mesh_opts['flash_fwd_chunk'],
                                worst['flash_fwd_chunk'],
                                flash_times[('flash_fwd_chunk', 'served')]),
                  launches_by_path={'serve_slot': k3_launches,
@@ -6225,7 +6475,9 @@ def main(argv=None) -> int:
                                        sched_slot['flash_fwd_chunk'],
                                    'serve_lora_slot':
                                        lora_slot['flash_fwd_chunk'],
-                                   'w8a8_slot': w8a8_k3},
+                                   'w8a8_slot': w8a8_k3,
+                                   'serve_mesh1_opts':
+                                       mesh_opts['flash_fwd_chunk']},
                  times_by_shape=_times_by_shape(
                      flash_times, 'flash_fwd_chunk',
                      ('served', 'long', 'verify'))),
@@ -6234,7 +6486,8 @@ def main(argv=None) -> int:
                                k4_launches + train_k4 + moe_k4 + kv_k4
                                + sched_slot['flash_fwd']
                                + lora_slot['flash_fwd']
-                               + lora_train[0] + lora_remat[0] + w8a8_k4,
+                               + lora_train[0] + lora_remat[0] + w8a8_k4
+                               + mesh_opts['flash_fwd'],
                                worst['flash_fwd'],
                                flash_times[('flash_fwd', 'served')]),
                  launches_by_path={'serve_slot': k4_launches,
@@ -6247,7 +6500,9 @@ def main(argv=None) -> int:
                                        lora_slot['flash_fwd'],
                                    'lora_train': lora_train[0],
                                    'lora_remat': lora_remat[0],
-                                   'w8a8_slot': w8a8_k4},
+                                   'w8a8_slot': w8a8_k4,
+                                   'serve_mesh1_opts':
+                                       mesh_opts['flash_fwd']},
                  times_by_shape=_times_by_shape(
                      flash_times, 'flash_fwd',
                      ('served', 'long', 'train', '7b', '8b_train'))),

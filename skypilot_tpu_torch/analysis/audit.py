@@ -463,23 +463,73 @@ def _record_collectives(engine, census: Dict[str, Dict[str, int]]) -> None:
     engine._run_graph = shim
 
 
-def expected_census(engine) -> Dict[str, Dict[str, int]]:
-    """The collectives one decode step and one merge of a mesh engine
-    must issue, from its layout (``mesh.tp_plan``): per layer an
-    all-reduce over tp after ``wo`` (heads split) and after ``w_down``
-    (mlp split), one all-gather over tp of the logits (vocab split), and
-    under dp three all-gathers over dp at the merge (the ring's k and v
-    rows and the tokens)."""
+def _forward_census(engine, *, dp_split: bool,
+                    w8a8: bool) -> Dict[str, int]:
+    """The collectives of one forward of a mesh engine, from its layout
+    (``mesh.tp_plan``): per layer an all-reduce over tp after ``wo``
+    (heads split) and after the FFN (mlp split: ``w_down``, or the MoE
+    experts' combine), one all-gather over tp of the logits (vocab
+    split); with ``w8a8`` a MAX all-reduce over tp of the row absmax
+    before each of those row-parallel products that runs on int8
+    activations (``wo``, and ``w_down`` of a dense FFN: the MoE experts'
+    einsums stay W8A16); with ``dp_split``
+    (a decode step's or a verify round's rows split over dp) an MoE
+    layer's all-gather over dp of its input rows."""
     plan, mesh = engine._tp_plan, engine.mesh
     L = engine.cfg.n_layers
-    step: Dict[str, int] = {}
+    out: Dict[str, int] = {}
     reduces = L * (int(plan['heads']) + int(plan['mlp']))
     if reduces:
-        step['all_reduce[tp]'] = reduces
+        out['all_reduce[tp]'] = reduces
+    maxes = L * (int(plan['heads'])
+                 + int(plan['mlp'] and not engine.cfg.is_moe))
+    if w8a8 and maxes:
+        out['all_reduce_max[tp]'] = maxes
     if plan['vocab']:
-        step['all_gather[tp]'] = 1
-    merge = {'all_gather[dp]': 3} if mesh.shape['dp'] > 1 else {}
-    return {'decode': step, 'merge': merge}
+        out['all_gather[tp]'] = 1
+    if dp_split and engine.cfg.is_moe and mesh.shape['dp'] > 1:
+        out['all_gather[dp]'] = L
+    return out
+
+
+def expected_census(engine) -> Dict[str, Dict[str, int]]:
+    """The collectives each graph of a mesh engine's decode must issue,
+    by graph label: one decode step ('decode', :func:`_forward_census`)
+    and one merge ('merge': under dp three all-gathers over dp, the
+    ring's k and v rows and the tokens); under ``speculate_k`` one
+    verify round instead ('spec': the forward's, W8A8's MAX reductions
+    too on the paged engine under ``prefill_w8a8``, and under dp the
+    three all-gathers of the new k and v rows and the commits), or
+    ``decode_steps_per_call`` fused rounds ('spec_fused', that many
+    times one round's)."""
+    dp = engine.mesh.shape['dp'] > 1
+    gathers = {'all_gather[dp]': 3} if dp else {}
+    if not engine.speculate_k:
+        return {'decode': _forward_census(engine, dp_split=True,
+                                          w8a8=False),
+                'merge': gathers}
+    from skypilot_tpu_torch.inference.paged import PagedInferenceEngine
+    # The slot engine's verify rounds stay W8A16, the paged engine's
+    # take prefill's W8A8 (as in the reference).
+    w8a8 = (bool(engine.prefill_w8a8)
+            and isinstance(engine, PagedInferenceEngine))
+    one = _forward_census(engine, dp_split=True, w8a8=w8a8)
+    for key, n in gathers.items():
+        one[key] = one.get(key, 0) + n
+    rounds = engine.decode_steps_per_call or 1
+    if rounds > 1:
+        return {'spec_fused': {k: n * rounds for k, n in one.items()}}
+    return {'spec': one}
+
+
+def expected_prefill_census(engine) -> Dict[str, int]:
+    """The collectives of one prefill call of a mesh engine (a paged
+    chunk, or a slot-engine prefill call): the forward's on every row
+    (prefill is not split over dp), W8A8's MAX reductions under
+    ``prefill_w8a8``. Prefill runs eagerly, so this is what
+    ``mesh.collective_counts`` gains around one call."""
+    return _forward_census(engine, dp_split=False,
+                           w8a8=bool(engine.prefill_w8a8))
 
 
 def _attach_costs(report: AuditReport, engine,

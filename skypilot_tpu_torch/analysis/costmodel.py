@@ -1676,15 +1676,18 @@ def kv_static_check(cfg, kv_cache_dtype, measured_per_token: float,
                     mesh=None) -> Dict[str, Any]:
     """Hold the static stored bytes/token (the pool's tensors over its
     capacity) to a measured, telemetry-derived value within
-    :data:`KV_TOLERANCE`. Returns the comparison record."""
-    if mesh is not None:
-        raise NotImplementedError('a mesh is not ported to the PyTorch '
-                                  'cost model yet')
+    :data:`KV_TOLERANCE`. Returns the comparison record. Under a serving
+    ``mesh`` (a ``ServingMesh``, a ``MeshSpec`` or axis sizes) the
+    static bytes are one device's: divided by the kv shard degree, as
+    the reference divides them."""
     page = 16
     n_pages = -(-64 // page) + 1
     cache = abstract_paged_cache(cfg, n_pages, page, kv_cache_dtype)
     static = kv_bytes_per_token((cache,), (classify_cache(cache),),
                                 n_pages * page)
+    if mesh is not None:
+        from skypilot_tpu_torch.inference.engine import kv_shard_degree
+        static /= kv_shard_degree(cfg, mesh)
     ratio = static / measured_per_token if measured_per_token else 0.0
     return {
         'static_bytes_per_token': static,

@@ -132,7 +132,10 @@ class AdapterRegistry:
         """In-memory adapter source (trainer-format tree, see
         ``lora.split_lora``): the checkpoint-less path. Registering a
         name that is loaded unloads it, so its next request loads the
-        new factors; refused while live requests pin the old ones."""
+        new factors; refused while live requests pin the old ones.
+        This rank's registry only: callers go through the engine's
+        ``register_adapter``, which a serving mesh mirrors to every
+        rank."""
         _check_name(name)
         if self._refs.get(name, 0) > 0:
             raise ValueError(

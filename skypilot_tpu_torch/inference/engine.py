@@ -75,9 +75,16 @@ when they do not divide); the constructor and every mirrored method
 followers first, so the host state stays identical everywhere. The
 decode rows split over dp: each dp rank decodes its block of slots and
 the merge all-gathers the ring rows and tokens over dp first, so every
-dp replica of the KV stays identical (prefill runs on every rank). The
-multi-LoRA bank, MoE expert leaves, speculation and W8A8 prefill raise
-``NotImplementedError`` under a mesh.
+dp replica of the KV stays identical (prefill runs on every rank).
+Under a mesh the engine keeps every option: MoE experts split their ffn
+width over tp (each rank holds every expert) and, under dp, route every
+row of the batch (``llama._attn_outputs``); the multi-LoRA bank stays
+whole on every rank and each uses its part (``multilora._gather_delta``;
+``register_adapter`` and every load and eviction run on every rank);
+speculative verify rounds split their rows over dp as decode does and
+gather the committed rows before the commit; W8A8 prefill takes the row
+absmax of a row-parallel product's input over tp (``quantization.
+quantize_rows``).
 
 Left for later slices: the gang hooks.
 """
@@ -95,7 +102,8 @@ from skypilot_tpu_torch.inference import adapters as adapters_lib
 from skypilot_tpu_torch.inference import speculative
 from skypilot_tpu_torch.inference.graphs import DecodeBuffers, DecodeGraphs
 from skypilot_tpu_torch.inference.kv_transfer import HandoffCapacityError
-from skypilot_tpu_torch.models import llama, lora, quantization, weights
+from skypilot_tpu_torch.models import (llama, lora, multilora, quantization,
+                                       weights)
 from skypilot_tpu_torch.models.configs import ModelConfig, check_supported
 from skypilot_tpu_torch.parallel import mesh as mesh_lib
 from skypilot_tpu_torch.telemetry import clock, tracing
@@ -384,7 +392,7 @@ MIRRORED = ('add_request', 'cancel', 'step', 'run_to_completion',
             'pop_finished', 'release_hold', 'export_kv_snapshot',
             'ingest_kv_snapshot', 'warm_prefix', 'export_prefix_snapshots',
             'export_prefix_entry', 'drain_pipeline', 'prefill_logits',
-            'kv_digest_by_rank')
+            'state_by_rank', 'register_adapter')
 
 
 def _mirror_methods(cls) -> None:
@@ -415,13 +423,12 @@ class _EngineBase:
         _mirror_methods(cls)
 
     def _init_mesh(self, mesh, cfg: ModelConfig, device: DeviceLike, *,
-                   max_batch: int, adapter_slots: int = 0,
-                   speculate_k: int = 0, prefill_w8a8: bool = False
-                   ) -> torch.device:
+                   max_batch: int) -> torch.device:
         """Bind the serving mesh (None: meshless) and return the device
         this rank runs on: the mesh's for a rank (``device`` must name
-        the same type), else ``device`` resolved. Options the mesh path
-        does not run raise ``NotImplementedError``."""
+        the same type), else ``device`` resolved. A batch that does not
+        split over dp, and a layout ``mesh.tp_plan`` refuses, raise
+        ``ValueError``."""
         self.mesh = mesh
         self.shard_cfg = cfg
         if mesh is None:
@@ -430,21 +437,6 @@ class _EngineBase:
                 != mesh.device.type:
             raise ValueError(f'device={device!r} but the mesh runs on '
                              f'{mesh.device.type}')
-        waits = []
-        if adapter_slots:
-            waits.append('the multi-LoRA bank (adapter_slots > 0; '
-                         'ROADMAP §1, bank under a mesh)')
-        if cfg.is_moe:
-            waits.append('MoE expert leaves (ROADMAP §1, MoE under a '
-                         'mesh)')
-        if speculate_k:
-            waits.append('speculative decoding (speculate_k > 0)')
-        if prefill_w8a8:
-            waits.append('W8A8 prefill (its activation row scales would '
-                         'span the tp shards)')
-        if waits:
-            raise NotImplementedError(
-                'not ported under a serving mesh yet: ' + '; '.join(waits))
         self._tp_plan = mesh_lib.tp_plan(cfg, mesh)
         self.shard_cfg = mesh_lib.shard_config(cfg, mesh)
         dp = mesh.shape['dp']
@@ -495,30 +487,77 @@ class _EngineBase:
         if self.mesh is not None and not self.mesh.closed:
             self.mesh.close_engine(self._mesh_eid)
 
-    def kv_digest_by_rank(self) -> List[str]:
-        """A sha1 of the bytes of each rank's KV tensors, in rank order
-        (one entry without a mesh): after the same calls, the dp
-        replicas of a shard must hold the same bytes. Reads the KV back
-        to the host."""
+    def state_by_rank(self) -> List[Dict[str, Any]]:
+        """Each rank's state, in rank order (one entry without a mesh):
+        ``kv``, a sha1 of its KV tensors' bytes (after the same calls the
+        dp replicas of a shard hold the same bytes); ``bank``, a sha1 of
+        its adapter bank's bytes and registry state (which adapter holds
+        which slot, and the load that wrote it: the prefix-cache salts;
+        None without a bank); ``spec``, its ``(spec_trail,
+        spec_metrics())`` (None without speculation), equal trails
+        meaning every round read back the same commits and accepted
+        counts on every rank. Reads the KV and the bank back to the
+        host."""
         import hashlib
-        h = hashlib.sha1()
-        for t in self.cache.tensors():
-            h.update(host_sync(t.contiguous().view(-1).view(torch.uint8))
-                     .tobytes())
-        if self.mesh is None:
-            return [h.hexdigest()]
-        return self.mesh.gather_objects(h.hexdigest())
 
-    def prefill_logits(self, tokens) -> np.ndarray:
+        def sha1(tensors, *extra):
+            h = hashlib.sha1()
+            for t in tensors:
+                h.update(host_sync(t.contiguous().view(-1)
+                                   .view(torch.uint8)).tobytes())
+            for e in extra:
+                h.update(repr(e).encode())
+            return h.hexdigest()
+
+        reg = self.adapters
+        mine = {
+            'kv': sha1(self.cache.tensors()),
+            'bank': None if reg is None else sha1(
+                multilora.bank_leaves(reg.bank), list(reg._loaded.items()),
+                sorted(reg._generation.items()), list(reg._free),
+                sorted(reg._refs.items()), reg.loads_total,
+                reg.evictions_total),
+            'spec': ((self.spec_trail, self.spec_metrics())
+                     if self.speculate_k else None)}
+        if self.mesh is None:
+            return [mine]
+        return self.mesh.gather_objects(mine)
+
+    def register_adapter(self, name: str, lora_tree: Any,
+                         scale: Optional[float] = None) -> None:
+        """Register ``name``'s in-memory adapter source
+        (``AdapterRegistry.register``), on every rank under a serving
+        mesh (a mirrored call, ordered with the loads and evictions that
+        the mirrored ``add_request`` makes): the one way to register an
+        adapter on a mesh engine."""
+        if self.adapters is None:
+            raise ValueError('the engine has no adapter bank '
+                             '(adapter_slots=0)')
+        self.adapters.register(name, lora_tree, scale)
+
+    def prefill_logits(self, tokens,
+                       adapters: Optional[List[Optional[str]]] = None
+                       ) -> np.ndarray:
         """fp32 logits ``[n, s, vocab]`` of every position of the token
         rows ``tokens`` ``[n, s]`` under the engine's weights (an
-        uncached causal prefill, ``llama.prefill_rows``; every rank's
-        shard under a mesh). Reads the result back to the host."""
+        uncached causal prefill, ``llama.prefill_rows``, on int8
+        activations under ``prefill_w8a8``; every rank's shard under a
+        mesh). ``adapters`` names each row's loaded bank adapter (None:
+        the base model). Reads the result back to the host."""
         toks = np.asarray(tokens, np.int32)
         (tok_d,) = device_upload((toks,), self.device)
+        adp_d = None
+        if adapters is not None:
+            slots = [-1 if a is None else self.adapters.slot_of(a)
+                     for a in adapters]
+            if None in slots:
+                raise ValueError(f'adapters {adapters} are not all loaded')
+            (adp_d,) = device_upload((np.asarray(slots, np.int32),),
+                                     self.device)
         logits, _ = llama.prefill_rows(
             self.params, tok_d, None, self.cfg,
-            attn_impl=getattr(self, 'attn_impl', 'auto'), all_logits=True)
+            attn_impl=getattr(self, 'attn_impl', 'auto'), all_logits=True,
+            w8a8=self.prefill_w8a8, mlora_idx=adp_d)
         return host_sync(logits)
 
     def _init_telemetry(self, enabled: bool = True) -> None:
@@ -1463,7 +1502,8 @@ def _slot_spec_verify(params, cache: llama.KVCache, tokens: torch.Tensor,
                       cfg: ModelConfig, attn_impl: str, kv_bucket: int,
                       sample: bool,
                       mlora_idx: Optional[torch.Tensor] = None,
-                      vocab_mask: Optional[torch.Tensor] = None):
+                      vocab_mask: Optional[torch.Tensor] = None,
+                      dp_rows: Optional[slice] = None):
     """One speculative verify round over the slot cache, in place: one
     forward over the ``k+1`` positions ``[t0, d1..dk]`` per slot as a
     chunk against each slot's first ``kv_bucket`` cache rows
@@ -1477,21 +1517,40 @@ def _slot_spec_verify(params, cache: llama.KVCache, tokens: torch.Tensor,
     positions' logits before acceptance, so a proposal outside the
     grammar is rejected like any other mismatch. No host sync: a CUDA
     graph captured of it replays any round. Returns ``(commit [b, k+1],
-    n_commit [b])`` int32."""
+    n_commit [b])`` int32.
+
+    ``dp_rows`` (a serving mesh's dp rank's block of slots): the forward
+    and the acceptance run on those rows only (``mesh.dp_split``), and
+    the new KV rows and the commits are all-gathered over dp before the
+    commit, so every dp replica of the cache writes every row, as the
+    decode merge does."""
     len0 = cache.length
-    cache_kv = tuple(t[:, :, :kv_bucket] for t in cache.tensors())
+    b = tokens.shape[0]
+    rs = slice(None) if dp_rows is None else dp_rows
+    cache_kv = tuple(t[:, rs, :kv_bucket] for t in cache.tensors())
     # A sentinel token (-1) of an inactive slot wraps to the last
     # embedding row, as the reference's gather does.
-    seq = torch.remainder(torch.cat([tokens[:, None], proposals], 1),
+    seq = torch.remainder(torch.cat([tokens[rs, None], proposals[rs]], 1),
                           cfg.vocab_size)
-    logits, rows = llama.prefill_rows(
-        params, seq, None, cfg, attn_impl=attn_impl,
-        quantize_rows=cache.quant_mode, cache_kv=cache_kv, cache_len=len0,
-        all_logits=True, mlora_idx=mlora_idx)
-    logits = llama.apply_vocab_mask(logits, vocab_mask)
+
+    def mine(t):
+        return None if t is None else t[rs]
+
+    with mesh_lib.dp_split(dp_rows):
+        logits, rows = llama.prefill_rows(
+            params, seq, None, cfg, attn_impl=attn_impl,
+            cache_kv=cache_kv, cache_len=len0[rs], all_logits=True,
+            mlora_idx=mine(mlora_idx))
+    logits = llama.apply_vocab_mask(logits, mine(vocab_mask))
     commit, n_commit = speculative.verify_tokens(
-        logits, proposals, n_prop, generator, temps, topks, topps,
-        sample=sample)
+        logits, proposals[rs], n_prop[rs], generator, mine(temps),
+        mine(topks), mine(topps), sample=sample, rows=dp_rows, n_rows=b)
+    if dp_rows is not None:
+        rows = tuple(mesh_lib.all_gather(t, 'dp', 1) for t in rows)
+        both = mesh_lib.all_gather(
+            torch.cat([commit, n_commit[:, None]], 1), 'dp', 0)
+        commit, n_commit = both[:, :-1], both[:, -1]
+    rows = llama._quantize_rows(*rows, cache.quant_mode)
     n_commit = n_commit.masked_fill(~active, 0)
     _commit_window(cache, rows, len0, n_commit)
     cache.length.copy_(len0 + n_commit)
@@ -1558,10 +1617,8 @@ class InferenceEngine(speculative.SpeculativeMixin, _EngineBase):
                  device: DeviceLike = 'cuda'):
         self._init_telemetry(telemetry)
         self.cfg = serving_config(cfg)
-        self.device = self._init_mesh(
-            mesh, self.cfg, device, max_batch=max_batch,
-            adapter_slots=adapter_slots, speculate_k=speculate_k,
-            prefill_w8a8=prefill_w8a8)
+        self.device = self._init_mesh(mesh, self.cfg, device,
+                                      max_batch=max_batch)
         self.max_batch = max_batch
         self.max_seq = max_seq
         self.attn_impl = attn_impl
@@ -1688,10 +1745,11 @@ class InferenceEngine(speculative.SpeculativeMixin, _EngineBase):
             r(c.v_scale, 1))
 
         def step(ring_k, ring_v, out, sample_fn):
-            llama.decode_step(self.params, cache, r(self._tok_dev),
-                              buf.step, r(ring_k, 1), r(ring_v, 1), r(out),
-                              self.cfg, sample_fn=sample_fn,
-                              kv_bucket=kv_bucket, **inputs)
+            with mesh_lib.dp_split(self._dp_rows):
+                llama.decode_step(self.params, cache, r(self._tok_dev),
+                                  buf.step, r(ring_k, 1), r(ring_v, 1),
+                                  r(out), self.cfg, sample_fn=sample_fn,
+                                  kv_bucket=kv_bucket, **inputs)
 
         def merge(ring_k, ring_v):
             self._dp_gather(ring_k, ring_v, buf.out(horizon))
@@ -2034,7 +2092,8 @@ class InferenceEngine(speculative.SpeculativeMixin, _EngineBase):
                 self.params, self.cache, self._tok_dev, proposals, n_prop,
                 buf.temps, buf.topks, buf.topps, active, self._gen,
                 cfg=self.cfg, attn_impl=self.attn_impl,
-                kv_bucket=kv_bucket, sample=sample, **inputs)
+                kv_bucket=kv_bucket, sample=sample, dp_rows=self._dp_rows,
+                **inputs)
 
         return verify
 

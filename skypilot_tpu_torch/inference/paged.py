@@ -65,6 +65,8 @@
   one SKKV blob of the meshless layout, and an ingest lands each rank's
   slice of it. CUDA ``auto`` keeps K1 under a mesh (it reads the local
   heads); the reference's TPU ``auto`` falls back to ``gather`` there.
+  A verify round under dp runs its rank's block of slots and gathers
+  the new rows and the commits before the masked merge.
 
 Unlike JAX arrays, the pool is updated IN PLACE: ``merge_rows_into_pool``
 scatters into the cache's tensors and returns the same cache. Every
@@ -523,6 +525,7 @@ def paged_spec_verify(
     mlora_idx: Optional[torch.Tensor] = None,   # [n] adapter slot per row
     vocab_mask: Optional[torch.Tensor] = None,  # [n, vocab] bool mask
     w8a8: bool = False,
+    dp_rows: Optional[slice] = None,   # a dp rank's block of the n rows
 ):
     """One speculative verify round over the paged pool, in place: a
     forward over the ``k+1`` positions ``[t0, d1..dk]`` per slot against
@@ -537,31 +540,43 @@ def paged_spec_verify(
 
     Every layer's rows are kept until the logits decide ``n_commit``, so
     the pool is written after every read of the round. No host sync:
-    a CUDA graph captured of it replays any round over the same
+    a CUDA graph captured of the round replays any round over the same
     buffers. Returns ``(commit [n, k+1], n_commit [n])`` int32.
     ``w8a8`` runs the layer loop inside ``quantization.w8a8_region``; a
-    graph captured of the round keeps that path."""
+    graph captured of the round keeps that path.
+
+    ``dp_rows`` (a serving mesh's dp rank's block of slots): the forward
+    and the acceptance run on those rows only (``mesh.dp_split``), and
+    the new KV rows and the commits are all-gathered over dp before the
+    merge, so every dp replica of the pool writes every row, as the
+    decode merge does."""
     n, k = proposals.shape
     dev = tokens.device
     len0 = lengths
+    rs = slice(None) if dp_rows is None else dp_rows
+
+    def mine(t):
+        return None if t is None else t[rs]
+
     # A sentinel token (-1) of an inactive slot wraps to the last
     # embedding row, as the reference's gather does.
-    seq = torch.remainder(torch.cat([tokens[:, None], proposals], 1).long(),
-                          cfg.vocab_size)
+    seq = torch.remainder(torch.cat([tokens[rs, None], proposals[rs]],
+                                    1).long(), cfg.vocab_size)
     x = llama._embed_tokens(params, seq, cfg)
-    positions = len0.long()[:, None] + torch.arange(k + 1, device=dev)[None]
+    positions = len0[rs].long()[:, None] + torch.arange(k + 1,
+                                                        device=dev)[None]
     k_parts, v_parts = [], []
-    with quantization.w8a8_region(w8a8):
+    with quantization.w8a8_region(w8a8), mesh_lib.dp_split(dp_rows):
         for li in range(cfg.n_layers):
-            ck, cv, sck, scv = _gather_layer(cache, li, table_p)
+            ck, cv, sck, scv = _gather_layer(cache, li, table_p[rs])
 
             def attn_fn(q, kk, vv, ck=ck, cv=cv, sck=sck, scv=scv):
-                return cached_attention(q, kk, vv, ck, cv, len0,
+                return cached_attention(q, kk, vv, ck, cv, len0[rs],
                                         k_scale=sck, v_scale=scv)
 
             x, (k_rows, v_rows), _ = llama._layer_core(
                 llama.layer_params(params, li), x, cfg, positions, attn_fn,
-                mlora_idx)
+                mine(mlora_idx))
             k_parts.append(k_rows)
             v_parts.append(v_rows)
     x = llama.rms_norm(x, params['final_norm'], cfg.norm_eps,
@@ -570,13 +585,19 @@ def paged_spec_verify(
     # The grammar masks constrain verification: the [n, vocab] mask
     # broadcasts over the k+1 positions, so a proposal outside the
     # grammar is rejected like any other mismatching draft.
-    logits = llama.apply_vocab_mask(logits, vocab_mask)
+    logits = llama.apply_vocab_mask(logits, mine(vocab_mask))
     commit, n_commit = speculative.verify_tokens(
-        logits, proposals, n_prop, generator, temps, topks, topps,
-        sample=sample)
+        logits, proposals[rs], n_prop[rs], generator, mine(temps),
+        mine(topks), mine(topps), sample=sample, rows=dp_rows, n_rows=n)
+    k_rows, v_rows = torch.stack(k_parts), torch.stack(v_parts)
+    if dp_rows is not None:
+        k_rows = mesh_lib.all_gather(k_rows, 'dp', 1)
+        v_rows = mesh_lib.all_gather(v_rows, 'dp', 1)
+        both = mesh_lib.all_gather(
+            torch.cat([commit, n_commit[:, None]], 1), 'dp', 0)
+        commit, n_commit = both[:, :-1], both[:, -1]
     n_commit = n_commit.masked_fill(~active, 0)
-    k_rows, v_rows = _maybe_quantize_rows(
-        (torch.stack(k_parts), torch.stack(v_parts)), cache.quant_mode)
+    k_rows, v_rows = _maybe_quantize_rows((k_rows, v_rows), cache.quant_mode)
     merge_rows_into_pool(cache, k_rows, v_rows, table_p, len0,
                          valid_len=n_commit)
     nxt = torch.gather(commit, 1,
@@ -756,10 +777,8 @@ class PagedInferenceEngine(speculative.SpeculativeMixin, _EngineBase):
                  device: DeviceLike = 'cuda'):
         self._init_telemetry(telemetry)
         self.cfg = serving_config(cfg)
-        self.device = self._init_mesh(
-            mesh, self.cfg, device, max_batch=max_batch,
-            adapter_slots=adapter_slots, speculate_k=speculate_k,
-            prefill_w8a8=prefill_w8a8)
+        self.device = self._init_mesh(mesh, self.cfg, device,
+                                      max_batch=max_batch)
         self.max_batch = max_batch
         self.max_seq = max_seq
         self.chunk = prefill_chunk_tokens
@@ -1541,11 +1560,12 @@ class PagedInferenceEngine(speculative.SpeculativeMixin, _EngineBase):
 
         def step(ring_k, ring_v, out, sample_fn):
             # Under dp this rank's block of slots only.
-            paged_decode_step(self.params, self.cache, r(table),
-                              r(buf.lengths), r(self._tok_dev), buf.step,
-                              r(ring_k, 1), r(ring_v, 1), r(out), self.cfg,
-                              sample_fn=sample_fn,
-                              decode_impl=self.decode_impl, **inputs)
+            with mesh_lib.dp_split(self._dp_rows):
+                paged_decode_step(self.params, self.cache, r(table),
+                                  r(buf.lengths), r(self._tok_dev),
+                                  buf.step, r(ring_k, 1), r(ring_v, 1),
+                                  r(out), self.cfg, sample_fn=sample_fn,
+                                  decode_impl=self.decode_impl, **inputs)
 
         def merge(ring_k, ring_v):
             self._dp_gather(ring_k, ring_v, buf.out(horizon))
@@ -1618,7 +1638,8 @@ class PagedInferenceEngine(speculative.SpeculativeMixin, _EngineBase):
                 self.params, self.cache, table, self._tok_dev, proposals,
                 n_prop, buf.lengths, active, self.cfg, sample=sample,
                 temps=buf.temps, topks=buf.topks, topps=buf.topps,
-                generator=self._gen, w8a8=self.prefill_w8a8, **inputs)
+                generator=self._gen, w8a8=self.prefill_w8a8,
+                dp_rows=self._dp_rows, **inputs)
             buf.lengths.add_(n_commit)
             return commit, n_commit
 

@@ -32,6 +32,7 @@ window carried between rounds.
 """
 from __future__ import annotations
 
+import zlib
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -118,7 +119,8 @@ def verify_tokens(logits: torch.Tensor, proposals: torch.Tensor,
                   temps: Optional[torch.Tensor],
                   topks: Optional[torch.Tensor],
                   topps: Optional[torch.Tensor], *,
-                  sample: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+                  sample: bool, rows: Optional[slice] = None,
+                  n_rows: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batched draft acceptance, on the device with fixed shapes.
 
     ``logits [b, k+1, vocab]`` fp32: position ``i`` is the next-token
@@ -137,6 +139,11 @@ def verify_tokens(logits: torch.Tensor, proposals: torch.Tensor,
     drawn from the filtered row with ``d`` masked out, by the Gumbel-max
     draw of ``engine.sample_tokens``.
 
+    ``logits`` may be the block ``rows`` of an ``n_rows`` batch (a dp
+    rank's verify rows): each uniform is then drawn for the whole batch
+    and this block taken, as ``engine.sample_tokens`` does, so every row
+    gets the noise it gets without dp.
+
     Returns ``(commit [b, k+1] int32, n_commit [b] int32)``:
     ``commit[:, :n_commit-1]`` are accepted drafts and
     ``commit[:, n_commit-1]`` the model's own token; 1 <= n_commit <=
@@ -153,7 +160,7 @@ def verify_tokens(logits: torch.Tensor, proposals: torch.Tensor,
                                        topks[:, None], topps[:, None])
         probs = torch.softmax(masked, dim=-1)                # [b, k+1, v]
         p_draft = torch.gather(probs[:, :k], 2, proposals[..., None])[..., 0]
-        u = torch.rand((b, k), generator=generator, device=dev)
+        u = _uniform((b, k), generator, dev, rows, n_rows)
         match = torch.where(temps[:, None] > 0, (u < p_draft) & valid, match)
     # Accepted prefix length a: drafts 1..a all passed.
     a = torch.cumprod(match.long(), dim=1).sum(1)            # [b]
@@ -170,13 +177,23 @@ def verify_tokens(logits: torch.Tensor, proposals: torch.Tensor,
                     & (torch.arange(vocab, device=dev)[None, :]
                        == rej[:, None]))
         row = row.masked_fill(mask_rej, float('-inf'))
-        u = torch.rand((b, vocab), generator=generator, device=dev)
+        u = _uniform((b, vocab), generator, dev, rows, n_rows)
         gumbel = -torch.log(-torch.log(u.clamp(min=1e-20, max=1.0 - 1e-7)))
         sampled = torch.argmax(row + gumbel, -1)
         corr = torch.where(temps > 0, sampled, corr)
     j = torch.arange(k + 1, device=dev)[None, :]
     commit = torch.where(j < a[:, None], padded, corr[:, None])
     return commit.to(torch.int32), (a + 1).to(torch.int32)
+
+
+def _uniform(shape, generator, dev, rows: Optional[slice],
+             n_rows: int) -> torch.Tensor:
+    """Uniforms of ``shape``, or this block ``rows`` of a draw for all
+    ``n_rows`` rows."""
+    if rows is None:
+        return torch.rand(shape, generator=generator, device=dev)
+    return torch.rand((n_rows,) + tuple(shape[1:]), generator=generator,
+                      device=dev)[rows]
 
 
 def carry_history(hist: torch.Tensor, commit: torch.Tensor,
@@ -235,6 +252,11 @@ class SpeculativeMixin:
         self.spec_fused_calls = 0
         # Host seconds from a round's dispatch to its readback.
         self.spec_round_s = 0.0
+        # Under a serving mesh, a running crc32 of every round's packed
+        # output as read back (commit rows, accepted counts, proposal
+        # counts): equal trails on every rank mean every round committed
+        # the same tokens everywhere (``state_by_rank``). 0 meshless.
+        self.spec_trail = 0
 
     # ------------------------------------------------------------ metrics
     def spec_metrics(self) -> Dict[str, Any]:
@@ -262,7 +284,14 @@ class SpeculativeMixin:
         keyed by (request_id, len(output)) and checked again in
         ``_spec_build_proposals``, which recomputes a stale entry. Only
         the engine-loop thread changes slot outputs, so the reads here
-        have one writer."""
+        have one writer.
+
+        Under a serving mesh this runs on rank 0 only, outside any
+        mirrored call; the followers' ``_spec_build_proposals`` finds no
+        prepared entry and proposes from its own histories, which are
+        rank 0's token for token (every rank runs the same mirrored
+        calls and commits the same all-gathered outputs), so every rank
+        verifies the same proposals without sending them."""
         if not self.speculate_k:
             return
         prep: Dict[str, Dict[int, Any]] = {'key': {}, 'prop': {}}
@@ -439,6 +468,8 @@ class SpeculativeMixin:
             out = self._spec_verify_call(ready, proposals, n_prop)
             # THE sanctioned readback of a round.
             out_h = host_sync(out)
+        if self.mesh is not None:
+            self.spec_trail = zlib.crc32(out_h.tobytes(), self.spec_trail)
         t1 = clock.monotonic()
         self.spec_round_s += t1 - t0
         self.spec_verify_calls += 1
@@ -506,6 +537,8 @@ class SpeculativeMixin:
             out = self._spec_fused_call(ready, rounds)
             # THE sanctioned readback: one per ``rounds`` rounds.
             out_h = host_sync(out)
+        if self.mesh is not None:
+            self.spec_trail = zlib.crc32(out_h.tobytes(), self.spec_trail)
         t1 = clock.monotonic()
         self.spec_round_s += t1 - t0
         self.spec_fused_calls += 1

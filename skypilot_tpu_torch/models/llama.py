@@ -192,15 +192,18 @@ def param_logical_axes(cfg: ModelConfig) -> Params:
         })
     if not cfg.tie_embeddings:
         axes['unembed'] = ('embed', 'vocab')
-    if cfg.is_moe or cfg.lora_enabled:
+    if cfg.lora_enabled:
         raise NotImplementedError(
-            'logical axes of MoE expert leaves and LoRA adapters: not '
-            'ported under a serving mesh yet (ROADMAP §1)')
-    axes['layers'].update({
-        'w_gate': ('layers', 'embed', 'mlp'),
-        'w_up': ('layers', 'embed', 'mlp'),
-        'w_down': ('layers', 'mlp', 'embed'),
-    })
+            'logical axes of LoRA adapters: not ported under a serving '
+            'mesh yet (ROADMAP §1)')
+    if cfg.is_moe:
+        axes['layers'].update(moe.moe_logical_axes(cfg))
+    else:
+        axes['layers'].update({
+            'w_gate': ('layers', 'embed', 'mlp'),
+            'w_up': ('layers', 'embed', 'mlp'),
+            'w_down': ('layers', 'mlp', 'embed'),
+        })
     return axes
 
 
@@ -492,7 +495,7 @@ def _ffn(layer: Params, x: torch.Tensor, cfg: ModelConfig,
            else F.gelu(gate.float(), approximate='tanh'))
     h = act.to(x.dtype) * up
     with remat.weight_products():
-        down = qeinsum('bsf,fd->bsd', h, layer['w_down'])
+        down = qeinsum('bsf,fd->bsd', h, layer['w_down'], row_split='mlp')
     down = _plus_lora(down, lo, 'w_down', h, cfg)
     if ml is not None:
         down = multilora.adjusted(ml, 'w_down', h, down, mlora_idx)
@@ -536,7 +539,7 @@ def _attn_outputs(layer: Params, x: torch.Tensor, out: torch.Tensor,
     """The layer from its attention output ``out`` on: (x, aux)."""
     ml = _bank(layer, mlora_idx)
     with remat.weight_products():
-        proj = qeinsum('bshk,hkd->bsd', out, layer['wo'])
+        proj = qeinsum('bshk,hkd->bsd', out, layer['wo'], row_split='heads')
     proj = _plus_lora(proj, _adapters(layer, mlora_idx), 'wo', out, cfg)
     if ml is not None:
         proj = multilora.adjusted(ml, 'wo', out, proj, mlora_idx)
@@ -545,7 +548,16 @@ def _attn_outputs(layer: Params, x: torch.Tensor, out: torch.Tensor,
     x = x + mesh_lib.reduce_partial(proj, 'heads')
     h = rms_norm(x, layer['ffn_norm'], cfg.norm_eps, cfg.norm_plus_one)
     if cfg.is_moe:
-        ffn_out, aux = moe.moe_ffn(layer, h, cfg)
+        # Under dp a decode step or a verify round holds only this
+        # rank's rows, but the dispatch's capacity and slot order are
+        # the whole batch's (ROADMAP R6): every row is gathered, routed
+        # and computed, and this rank's rows kept. Under tp the experts'
+        # local mlp columns give a partial sum, reduced as _ffn's is.
+        rows_all, mine = mesh_lib.gather_dp_rows(h)
+        ffn_out, aux = moe.moe_ffn(layer, rows_all, cfg)
+        if mine is not None:
+            ffn_out = ffn_out[mine]
+        ffn_out = mesh_lib.reduce_partial(ffn_out, 'mlp')
     else:
         ffn_out, aux = _ffn(layer, h, cfg, mlora_idx), None
     return x + ffn_out, aux

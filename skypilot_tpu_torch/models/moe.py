@@ -1,5 +1,8 @@
 """Mixture-of-experts FFN, Mixtral-class (the port's own copy of
-``skypilot_tpu/models/moe.py``; one device, so no expert sharding).
+``skypilot_tpu/models/moe.py``). Its leaves carry the reference's
+logical axes (:func:`moe_logical_axes`); on a serving mesh the expert
+axis has size 1, so every rank holds every expert with its ffn width
+split over tp and :func:`moe_ffn` returns a partial sum over tp.
 
 Dispatch is GShard-style capacity-based top-k: tokens are taken in
 groups of :data:`_MOE_GROUP_SIZE`, each expert processes a fixed
@@ -67,6 +70,20 @@ def init_moe_params(cfg: ModelConfig, gen: torch.Generator,
         'moe_gate': leaf('moe_gate', (E, d, f), d),
         'moe_up': leaf('moe_up', (E, d, f), d),
         'moe_down': leaf('moe_down', (E, f, d), f),
+    }
+
+
+def moe_logical_axes(cfg: ModelConfig) -> Params:
+    """The MoE leaves' logical axes (the reference's): the router
+    replicated, the experts on 'expert' (``('fsdp', 'sp')``, size 1 on a
+    serving mesh, so every rank holds every expert) with their ffn width
+    on 'mlp' (split over tp, as a dense FFN's is)."""
+    del cfg
+    return {
+        'router': ('layers', 'embed', None),
+        'moe_gate': ('layers', 'expert', 'embed', 'mlp'),
+        'moe_up': ('layers', 'expert', 'embed', 'mlp'),
+        'moe_down': ('layers', 'expert', 'mlp', 'embed'),
     }
 
 

@@ -26,6 +26,10 @@ are refused at load (:func:`adapter_row_from_tree`).
 
 The delta is plain batched ``torch`` matmuls, as the reference computes
 it in XLA outside any Pallas kernel.
+
+Under a serving mesh's tp the bank stays whole on every rank (the
+reference replicates it), and each rank uses its part of it at the
+product (:func:`_gather_delta`): no collective of its own.
 """
 from __future__ import annotations
 
@@ -37,6 +41,7 @@ import torch
 
 from skypilot_tpu_torch.models import lora as lora_lib
 from skypilot_tpu_torch.models.configs import ModelConfig
+from skypilot_tpu_torch.parallel import mesh as mesh_lib
 from skypilot_tpu_torch.utils.device import DeviceLike, resolve_device
 
 Params = Dict[str, Any]
@@ -99,6 +104,15 @@ def bank_targets(bank: Params) -> Tuple[str, ...]:
     return tuple(t for t in bank if t != 'scale')
 
 
+def bank_leaves(bank: Params):
+    """The bank's tensors: each target's ``a`` and ``b``, then the
+    scales."""
+    for t in bank_targets(bank):
+        yield bank[t]['a']
+        yield bank[t]['b']
+    yield bank['scale']
+
+
 def bank_bytes(bank: Params) -> int:
     """Device bytes the bank holds (factors and scales)."""
     total = bank['scale'].numel() * bank['scale'].element_size()
@@ -108,6 +122,13 @@ def bank_bytes(bank: Params) -> int:
     return total
 
 
+# The logical axis tp splits each target's output (column-parallel) or
+# input (row-parallel) over.
+_COLUMN_SPLIT = {'wq': 'heads', 'wk': 'kv_heads', 'wv': 'kv_heads',
+                 'w_gate': 'mlp', 'w_up': 'mlp'}
+_ROW_SPLIT = {'wo': 'heads', 'w_down': 'mlp'}
+
+
 def _gather_delta(ml: Params, target: str, x: torch.Tensor,
                   idx: torch.Tensor) -> torch.Tensor:
     """The scaled low-rank delta, gathered per row from the bank slice
@@ -115,12 +136,25 @@ def _gather_delta(ml: Params, target: str, x: torch.Tensor,
     slot 0's factors, and :func:`adjusted` selects their result away.
     The reference's rounding order: the factors cast to ``x.dtype``,
     ``z = x @ a`` then ``z @ b`` in that dtype, times the fp32 scale
-    cast to ``x.dtype``."""
+    cast to ``x.dtype``.
+
+    Under tp (``mesh.tp_slice``) a column-parallel target (q, k, v,
+    gate, up) takes this rank's output columns of ``b``, and a
+    row-parallel one (``wo``, ``w_down``) this rank's input rows of
+    ``a``: its delta is then a partial sum, which the reduce after the
+    base product adds up with it. The rounding order differs from the
+    reference's partitioned program (which may reduce ``x @ a`` first);
+    fp32 keeps the two within rounding."""
     dt = x.dtype
     n_slots = ml['scale'].shape[0]
     g = torch.clamp(idx.long(), 0, n_slots - 1)
-    a = ml[target]['a'][g].to(dt)              # [b, *in, r]
-    b = ml[target]['b'][g].to(dt)              # [b, r, *out]
+    a, b = ml[target]['a'], ml[target]['b']    # [A, *in, r], [A, r, *out]
+    if target in _COLUMN_SPLIT:
+        b = b[:, :, mesh_lib.tp_slice(b.shape[2], _COLUMN_SPLIT[target])]
+    else:
+        a = a[:, mesh_lib.tp_slice(a.shape[1], _ROW_SPLIT[target])]
+    a = a[g].to(dt)                            # [b, *in, r]
+    b = b[g].to(dt)                            # [b, r, *out]
     if target == 'wo':                         # x: [b, s, h, k]
         z = torch.einsum('bshk,bhkr->bsr', x, a)
         d = torch.einsum('bsr,brd->bsd', z, b)

@@ -44,6 +44,7 @@ from typing import Any, Dict, NamedTuple, Optional
 import torch
 
 from skypilot_tpu_torch.ops import cost
+from skypilot_tpu_torch.parallel import mesh as mesh_lib
 
 Params = Dict[str, Any]
 
@@ -155,16 +156,23 @@ def w8a8_active() -> bool:
     return getattr(_a8_region, 'active', False)
 
 
-def quantize_rows(x: torch.Tensor):
+def quantize_rows(x: torch.Tensor, row_split: Optional[str] = None):
     """``[..., k]`` rows -> (int8 codes, ``[..., 1]`` fp32 scales):
     ``scale = max(absmax, 1e-8) / 127`` per row, codes ``clamp(round(x /
     scale), -127, 127)`` with round half to even, computed in fp32 (the
     reference's activation quantizer and its KV row quantizer). Both
     divisions are true divisions on every device: CUDA divides by a
     Python scalar as a multiply by its reciprocal, which can differ in
-    the last bit, so the 127 is a tensor."""
+    the last bit, so the 127 is a tensor.
+
+    ``row_split`` names the logical axis a serving mesh splits the rows'
+    ``k`` over (a row-parallel product's input): each rank holds a part
+    of every row, so the absmax is all-reduced with MAX over tp first,
+    and the scales are the whole rows' exactly."""
     xf = x.float()
     amax = xf.abs().amax(-1, keepdim=True)
+    if row_split is not None:
+        amax = mesh_lib.reduce_max(amax, row_split)
     scale = torch.clamp(amax, min=1e-8) / torch.full_like(amax, 127.0)
     q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
     return q, scale
@@ -194,11 +202,13 @@ def int8_matmul(x8: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
 
 
 def _w8a8_product(x2: torch.Tensor, codes: torch.Tensor,
-                  scale: torch.Tensor) -> torch.Tensor:
-    """The W8A8 contraction: ``x2 [..., k]`` quantized per row, int8 x
-    int8 -> int32, then ``int32 -> fp32``, times the row scale, times the
-    per-channel ``scale``, in that order (fp32)."""
-    x8, xscale = quantize_rows(x2)
+                  scale: torch.Tensor,
+                  row_split: Optional[str] = None) -> torch.Tensor:
+    """The W8A8 contraction: ``x2 [..., k]`` quantized per row
+    (``row_split``: :func:`quantize_rows`), int8 x int8 -> int32, then
+    ``int32 -> fp32``, times the row scale, times the per-channel
+    ``scale``, in that order (fp32)."""
+    x8, xscale = quantize_rows(x2, row_split)
     y = int8_matmul(x8, codes).float() * xscale
     return y * scale.reshape(-1).float()
 
@@ -249,7 +259,8 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def qeinsum(eq: str, x: torch.Tensor, w, *,
-            out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+            out_dtype: Optional[torch.dtype] = None,
+            row_split: Optional[str] = None) -> torch.Tensor:
     """``einsum(eq, x, w)`` for the model's weight patterns, whose
     contracted axes lead ``w`` and close ``x`` ('bsd,dhk->bshk',
     'bshk,hkd->bsd', 'bsd,df->bsf', 'bsf,fd->bsd', 'bsd,dv->bsv'), as
@@ -266,14 +277,17 @@ def qeinsum(eq: str, x: torch.Tensor, w, *,
     per call. A ``QuantizedWeight4`` goes through :func:`_qeinsum4`.
 
     Inside :func:`w8a8_region` a ``QuantizedWeight`` contracts the
-    activation's int8 row codes instead (:func:`_w8a8_product`)."""
+    activation's int8 row codes instead (:func:`_w8a8_product`); a
+    row-parallel product under a serving mesh names the logical axis its
+    contraction is split over (``row_split``: 'heads' for ``wo``, 'mlp'
+    for ``w_down``), so the row scales span the tp shards."""
     ins, _ = eq.split('->')
     xs, ws = ins.split(',')
     nc = sum(c in xs for c in ws)
     if xs[-nc:] != ws[:nc]:
         raise ValueError(f'unsupported qeinsum pattern {eq!r}')
     if isinstance(w, QuantizedWeight4):
-        return _qeinsum4(x, w, nc, out_dtype)
+        return _qeinsum4(x, w, nc, out_dtype, row_split)
     wshape = w.shape
     k = 1
     for s in wshape[:nc]:
@@ -289,7 +303,7 @@ def qeinsum(eq: str, x: torch.Tensor, w, *,
             y = y.to(out_dtype)
         return y.reshape(out_shape)
     if w8a8_active():
-        y = _w8a8_product(x2, w.int8.reshape(k, -1), w.scale)
+        y = _w8a8_product(x2, w.int8.reshape(k, -1), w.scale, row_split)
     else:
         y = _codes_matmul(x2, w.int8.reshape(k, -1))
         y = y * w.scale.reshape(-1).float()
@@ -310,7 +324,8 @@ def _codes_matmul(x2: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
 
 
 def _qeinsum4(x: torch.Tensor, w: QuantizedWeight4, nc: int,
-              out_dtype: Optional[torch.dtype]) -> torch.Tensor:
+              out_dtype: Optional[torch.dtype],
+              row_split: Optional[str] = None) -> torch.Tensor:
     """The int4 contraction behind :func:`qeinsum`: the packed ``[k/2,
     n]`` bytes unpack to ``[k, n]`` codes (pairs along the last
     contracted axis are adjacent in the flattened k order). Per-channel
@@ -336,7 +351,7 @@ def _qeinsum4(x: torch.Tensor, w: QuantizedWeight4, nc: int,
         # Unpacked from the transposed bytes, so the [k, n] codes come
         # out column-major: cuBLASLt's fast int8 layout.
         codes = unpack_int4(w.packed.reshape(kp, n).t(), axis=1).t()
-        y = _w8a8_product(x2, codes, w.scale)
+        y = _w8a8_product(x2, codes, w.scale, row_split)
         return y.to(out_dtype).reshape(out_shape)
     codes = unpack_int4(w.packed.reshape(kp, n), axis=0)
     if G == 1:

@@ -435,7 +435,15 @@ def load_hf_params(path: str, cfg: ModelConfig,
             else:
                 w = quantization.quantize_slice(name, w, quantize, group,
                                                 cfg.dtype)
-        w = keep(('layers',) + leaf[1:2], w, True)
+        if len(leaf) == 3 and cut is not None:
+            # One expert's slice: cut as the layer's expert stack of one.
+            one = (type(w)(*(t[None] for t in w))
+                   if isinstance(w, QUANT_LEAF_TYPES) else w[None])
+            out = keep(('layers', name), one, True)
+            w = (type(out)(*(t[0] for t in out))
+                 if isinstance(out, QUANT_LEAF_TYPES) else out[0])
+        else:
+            w = keep(('layers',) + leaf[1:2], w, True)
         with lock:
             buf = rows(name, lead, w)
             seen.add(key)

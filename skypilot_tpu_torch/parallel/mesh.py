@@ -414,16 +414,22 @@ def _note(op: str, axis: str, t: torch.Tensor) -> bool:
     return True
 
 
-def all_reduce(x: torch.Tensor, axis: str = 'tp') -> torch.Tensor:
-    """Sum ``x`` over the active mesh's ``axis`` (in place on a
-    contiguous ``x``; returns the sum)."""
+def all_reduce(x: torch.Tensor, axis: str = 'tp',
+               op: str = 'sum') -> torch.Tensor:
+    """Reduce ``x`` over the active mesh's ``axis``, its sum or (``op=
+    'max'``) its elementwise max, in place on a contiguous ``x``;
+    returns the result. The census names a max ``all_reduce_max``."""
     sc = active()
     if sc is None:
         raise RuntimeError('all_reduce outside a mesh scope')
+    if op not in ('sum', 'max'):
+        raise ValueError(f'unknown all_reduce op {op!r}')
     y = x if x.is_contiguous() else x.contiguous()
-    if _note('all_reduce', axis, y):
+    if _note('all_reduce' if op == 'sum' else 'all_reduce_max', axis, y):
         import torch.distributed as dist
-        dist.all_reduce(y, group=sc.mesh.group(axis))
+        dist.all_reduce(y, op=(dist.ReduceOp.SUM if op == 'sum'
+                               else dist.ReduceOp.MAX),
+                        group=sc.mesh.group(axis))
     return y
 
 
@@ -454,6 +460,18 @@ def reduce_partial(x: torch.Tensor, logical: str) -> torch.Tensor:
     return all_reduce(x, 'tp')
 
 
+def reduce_max(x: torch.Tensor, logical: str) -> torch.Tensor:
+    """The elementwise max over tp of a per-rank statistic of a tensor
+    split over tp by ``logical`` (the row absmax of a row-parallel
+    product's input, 'heads' before ``wo``, 'mlp' before ``w_down``):
+    the statistic of the whole row, exactly. ``x`` itself when the
+    active plan does not split ``logical``."""
+    sc = active()
+    if sc is None or not sc.plan.get(logical):
+        return x
+    return all_reduce(x, 'tp', op='max')
+
+
 def gather_split(x: torch.Tensor, logical: str, dim: int) -> torch.Tensor:
     """The whole of a tensor split over tp by ``logical`` ('vocab' for
     the logits, 'kv_heads' for KV rows read back), gathered along
@@ -462,6 +480,33 @@ def gather_split(x: torch.Tensor, logical: str, dim: int) -> torch.Tensor:
     if sc is None or not sc.plan.get(logical):
         return x
     return all_gather(x, 'tp', dim)
+
+
+@contextlib.contextmanager
+def dp_split(rows: Optional[slice]):
+    """Mark the forward run inside as computing only this dp rank's
+    block ``rows`` of the batch's rows (a decode step or a verify round
+    under dp; None marks nothing): a layer that must see every row
+    gathers them with :func:`gather_dp_rows`. A CUDA graph captured
+    inside keeps the gathers."""
+    prev = getattr(_tls, 'dp_rows', None)
+    _tls.dp_rows = rows
+    try:
+        yield
+    finally:
+        _tls.dp_rows = prev
+
+
+def gather_dp_rows(x: torch.Tensor
+                   ) -> Tuple[torch.Tensor, Optional[slice]]:
+    """``(every row of the batch, this rank's rows)`` for ``x`` whose
+    dim 0 is this dp rank's block inside :func:`dp_split` (one
+    all-gather over dp, rank order = row order); ``(x, None)``
+    outside one."""
+    rows = getattr(_tls, 'dp_rows', None)
+    if rows is None:
+        return x, None
+    return all_gather(x, 'dp', 0), rows
 
 
 def tp_slice(n: int, logical: str) -> slice:

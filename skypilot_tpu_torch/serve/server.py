@@ -83,7 +83,12 @@ per other rank, each holding its shard of the engine; the HTTP front
 end, the scheduler, the tokenizer and every host decision stay here,
 and each engine call is sent to the followers before it runs.
 ``stop()`` shuts the followers down. On the CPU the ranks are gloo
-processes (``--device cpu``); on CUDA, NCCL ranks, one card each.
+processes (``--device cpu``); on CUDA, NCCL ranks, one card each. Every
+engine option combines with ``--tp``/``--dp``: ``--adapter-slots`` (a
+request's adapter loads on every rank inside the mirrored admission),
+``--speculate-k`` (the proposals prepared here, outside the lock; the
+followers propose from the same histories), ``--prefill-w8a8`` and a
+MoE model.
 
 Gray failures: a step watchdog thread degrades the replica when an
 engine step outlives ``step_watchdog_s`` (a wedged step), and so does a

@@ -8,6 +8,8 @@
   reports ``skytpu_mesh_shape{axis="tp"} 2``, the JSON ``mesh`` block
   ``devices: 2`` and the scheduler's ``mesh_speedup`` 2, and ``stop()``
   leaves no follower process;
+- an adapter request on a tp = 2 server with a bank and speculation
+  equals a meshless engine's tokens, both ranks' banks equal;
 - a follower killed mid-wave makes rank 0 raise within the process
   group's timeout instead of hanging;
 - the command line takes ``--tp`` and ``--dp``.
@@ -16,6 +18,7 @@ Each test builds its own mesh (one per process at a time), with its
 rendezvous under ``tmp_path`` and a 60 s timeout; every follower is
 reaped before the test ends.
 """
+import dataclasses
 import json
 import os
 import signal
@@ -107,6 +110,65 @@ def test_e2e_server_tp2_streamed_completion(monkeypatch, tmp_path):
     finally:
         server.stop()
     assert pids and all(_gone(p) for p in pids)
+
+
+def test_server_tp2_serves_an_adapter_request_speculatively(monkeypatch,
+                                                           tmp_path):
+    """``ModelServer(tp=2, adapter_slots=2, adapter_dir=D,
+    speculate_k=2)``: a request naming an adapter of ``D`` loads it on
+    both ranks (inside the mirrored admission) and decodes in
+    speculative rounds whose proposals rank 0 prepares outside the
+    lock; its tokens and a base request's equal a meshless engine's
+    with the same bank, and both ranks' banks are equal."""
+    from skypilot_tpu_torch.models import lora, multilora
+    monkeypatch.setattr(tempfile, 'tempdir', str(tmp_path))
+    # fp32: tp = 2 streams equal the meshless ones (bf16 ones need not).
+    cfg = dataclasses.replace(configs.TINY, dtype=torch.float32)
+    lcfg = dataclasses.replace(cfg, lora_rank=4)
+    gen = torch.Generator().manual_seed(5)
+    tree = {t: {'a': torch.randn((cfg.n_layers,) + lora._target_shapes(
+                    lcfg, t)[0], generator=gen) * 0.3,
+                'b': torch.randn((cfg.n_layers,) + lora._target_shapes(
+                    lcfg, t)[1], generator=gen) * 0.3}
+            for t in ('wq', 'wo', 'w_up', 'w_down')}
+    adapter_dir = tmp_path / 'adapters'
+    adapter_dir.mkdir()
+    multilora.save_adapter(str(adapter_dir / 'a1.npz'), lcfg, tree)
+    kw = dict(max_batch=2, max_seq=64, adapter_slots=2, adapter_rank=4,
+              adapter_dir=str(adapter_dir), speculate_k=2)
+    port = _free_port()
+    server = ModelServer(cfg, port=port, tp=2, device='cpu', **kw)
+    server.start(block=False)
+    pids = []
+    prompt = [1, 2, 3, 4] * 4
+    try:
+        server.wait_ready(120)
+        pids = server.mesh.follower_pids()
+        got = {}
+        for name in ('a1', None):
+            body = {'prompt': prompt, 'max_new_tokens': 8}
+            if name:
+                body['adapter'] = name
+            req = urllib.request.Request(
+                f'http://127.0.0.1:{port}/generate',
+                json.dumps(body).encode(),
+                {'Content-Type': 'application/json'})
+            with urllib.request.urlopen(req, timeout=60) as r:
+                got[name] = json.loads(r.read())['tokens']
+        with server._lock:
+            digests = [d['bank'] for d in server.engine.state_by_rank()]
+        assert server.engine.spec_metrics()['spec_rounds'] > 0
+    finally:
+        server.stop()
+    assert pids and all(_gone(p) for p in pids)
+    assert len(digests) == 2 and digests[0] == digests[1]
+    ref = PagedInferenceEngine(cfg, device='cpu', **kw)
+    want = {}
+    for name in ('a1', None):
+        rid = ref.add_request(prompt, max_new_tokens=8, adapter=name)
+        want[name] = ref.run_to_completion(horizon=4)[rid].output
+    assert got == want
+    assert got['a1'] != got[None]
 
 
 def test_follower_killed_mid_wave_raises_on_rank_0(tmp_path):

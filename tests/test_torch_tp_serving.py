@@ -15,7 +15,8 @@ its own streams, and to the reference's meshless ones at fp32).
 - per-shard KV counts equal to the reference's;
 - a KV handoff exported at tp = 2 lands at tp = 1 and the reverse, and
   the streams continue as the exporting engine's own;
-- the options that wait raise ``NotImplementedError``.
+- the layout that still waits (several replicated kv heads) raises
+  ``ValueError``.
 
 The mesh is one module fixture: a ``FileStore`` under ``tmp_path``, a
 60 s process-group timeout (a hang fails the test instead of eating the
@@ -270,18 +271,17 @@ def test_kv_handoff_crosses_tp(mesh, tiny, direction, kv):
 
 
 def test_options_that_wait_raise_under_a_mesh(mesh):
-    """The multi-LoRA bank, MoE expert leaves, speculation and W8A8
-    prefill raise ``NotImplementedError`` under a mesh on both engines
-    (the followers raise too, and the mesh serves on)."""
+    """The one layout still waiting under a mesh (ROADMAP §1 item 2a):
+    q heads split over tp while several kv heads replicate (6 q heads
+    and 3 kv heads at tp = 2). Both engines refuse it with
+    ``ValueError`` on every rank alike, and the mesh serves on. The
+    bank, MoE, speculation and W8A8 prefill run under a mesh now
+    (``tests/test_torch_mesh_options.py``)."""
+    cfg = dataclasses.replace(TCFG, n_heads=6, n_kv_heads=3,
+                              head_dim_override=16)
     for cls in (PagedInferenceEngine, InferenceEngine):
-        for cfg, kw in ((TCFG, {'adapter_slots': 2}),
-                        (dataclasses.replace(configs.TINY_MOE,
-                                             dtype=torch.float32), {}),
-                        (TCFG, {'speculate_k': 2}),
-                        (TCFG, {'prefill_w8a8': True, 'quantize': 'int8'})):
-            with pytest.raises(NotImplementedError, match='serving mesh'):
-                cls(cfg, max_batch=2, max_seq=64, device='cpu', mesh=mesh,
-                    **kw)
+        with pytest.raises(ValueError, match='replicated kv heads'):
+            cls(cfg, max_batch=2, max_seq=64, device='cpu', mesh=mesh)
     _, eng = _run(PagedInferenceEngine, TCFG, None, gen=2,
                   prompts=([1, 2, 3],), mesh=mesh)
     eng.close()
