@@ -103,7 +103,8 @@ Phases, one JSON line each; any failure exits non-zero:
    ``graph_capture_s`` and ``graph_pool_gb``.
    serve_spec, serve_spec_fused, serve_slot_spec — speculative decoding
    (``speculate_k=4``; fused: 4 rounds a call; slot: the slot engine,
-   whose verify rounds run K3 at sq = 5) on the ``serve`` weights, the
+   whose verify rounds run K3 at sq = 5) on the ``serve`` weights at
+   CUT_LAYERS of the 32 layers (for the time limit), the
    8 requests with spec prompts (each a random 16-token segment
    repeated to its length), then the same requests at
    ``speculate_k=0`` in the same phase to compare against: TTFT, TPOT,
@@ -147,7 +148,7 @@ Phases, one JSON line each; any failure exits non-zero:
    every one in the throughput tier; every request brings its count and
    the latency tier admits all of its own. serve_sched_slot — the same
    at a quarter of the counts on the slot engine (K4/K3 prefill), at
-   16 of the 32 layers (CUT_LAYERS, for the time limit).
+   CUT_LAYERS (8) of the 32 layers, for the time limit.
    sched_shed — ``max_queue_tokens=2048`` and 28 requests of 128 work
    tokens at once (both halved: ``reduced``): every refusal a 429 with an integer ``Retry-After`` >= 1,
    ``skytpu_sched_shed_total`` in the Prometheus text equal to the
@@ -213,6 +214,23 @@ Phases, one JSON line each; any failure exits non-zero:
    the line carries the NCCL version, captures and replays, K1
    launches and both engines' TPOT. ``multi_card: false``: the machine
    has one card, and NCCL refuses two ranks on one GPU.
+   serve_gang — multi-host gang serving's replicated plane on the one
+   card (``serve/gang.py``): rank 0 a ``ModelServer`` on llama2-7b
+   bf16 at full width and depth (paged, ``decode_impl`` auto: K1,
+   random weights from the seed), rank 1 a separate ``python -m
+   skypilot_tpu_torch.serve.server --gang-rank 1`` process under the
+   launch-env contract with the same engine on the same card; the 8
+   requests through rank 0. The line carries the join seconds, each
+   rank's K1 launches (rank 1's from its exit summary), whether the
+   digests of every finished request are equal (all must be), the
+   drain acked by both ranks, a ``gang_member_crash`` on rank 1 of a
+   tiny second gang (cause ``heartbeat_lost`` within the heartbeat
+   bound + 2 s) and K1 through the replicated kv-head layout
+   (``mesh.kv_head_layout``) against the plain version at 64 q / 8 kv
+   (tp 16, rank 5) and 6 q / 3 kv (tp 2, rank 1). A mesh gang across
+   cards, replicated kv heads at tp > 1 and dp-split prefill need
+   several mesh ranks, and NCCL refuses two ranks on one GPU: held on
+   the CPU only.
    serve_mesh1_opts — the serving options on the same one-rank NCCL
    mesh, each case on the weights already on the card and held bit for
    bit against a meshless engine with the same params and options (4
@@ -346,14 +364,17 @@ for K6, ``kv_handoff``, ``kv_handoff_slot`` and ``kv_checkpoint``, and
 ``serve_sched``, ``serve_sched_slot``, ``sched_shed``, ``sched_drain``,
 ``disagg_relay``, ``serve_lora`` and ``serve_lora_slot``, and
 ``lora_train``, ``lora_remat`` and ``lora_serve``, ``serve_w8a8``,
-``w8a8_slot``, ``fault_watchdog``, ``serve_mesh1`` and
-``serve_mesh1_opts``),
+``w8a8_slot``, ``fault_watchdog``, ``serve_mesh1``,
+``serve_mesh1_opts`` and ``serve_gang``, rank 0's and rank 1's),
 with the counts set to 0 just before each; ``launches_by_path`` splits a kernel's count by
-phase. The time limit cut ``kv_handoff``, ``sched_drain``,
-``disagg_relay``, ``serve_sched_slot`` (since PR 19) and ``lora_check``'s
-bf16 part to 16 of llama2-7b's 32 layers (CUT_LAYERS, ``reduced`` on their lines), serve_moe to 8 of 32
-and serve_int4 to 20 of 80 (BIG_SERVE_LAYERS). Launches made to compare
-or time a kernel do not count.
+phase. The time limit cut ``kv_handoff``, ``kv_checkpoint``,
+``sched_drain``, ``disagg_relay``, ``serve_sched_slot``, ``serve_spec``,
+``serve_spec_fused``, ``serve_slot_spec`` and ``lora_check``'s bf16
+part to CUT_LAYERS (8) of llama2-7b's 32 layers (``reduced`` on their
+lines), serve_moe to 8 of 32 and serve_int4 to 20 of 80
+(BIG_SERVE_LAYERS); qwen2-7b's checkpoint is written by a child process
+while the gemma-2b checkpoint phases run. Launches made to compare or
+time a kernel do not count.
 Phases 12-15 report their own launches on their own lines.
 K4's count adds its paths (slot prefill and every training phase).
 
@@ -1535,8 +1556,9 @@ def _prompts(seed, vocab):
     return [[int(t) for t in rng.integers(3, vocab, n)] for n in PROMPT_LENS]
 
 
-CUT_LAYERS = 16     # depth of the kv_handoff, sched_drain, disagg_relay,
-                    # serve_sched_slot and lora_check 7B models, cut for
+CUT_LAYERS = 8      # depth of the kv_handoff, kv_checkpoint, sched_drain,
+                    # disagg_relay, serve_sched_slot, serve_spec*,
+                    # serve_slot_spec and lora_check 7B models, cut for
                     # the time limit
 
 
@@ -2732,12 +2754,13 @@ def phase_serve_spec(torch, seed, params, phase, kv_cache='paged',
     from skypilot_tpu_torch.serve.server import ModelServer
     sq = SPEC_K + 1
     line, runs, toks = {}, {}, {}
+    cut_cfg, params, cut = _cut_7b(params)
     for k in (SPEC_K, 0):
         torch.cuda.reset_peak_memory_stats()
         port = _free_port()
         t0 = time.monotonic()
         _fresh_registry()
-        srv = ModelServer('llama2-7b', max_batch=8, max_seq=2048,
+        srv = ModelServer(cut_cfg, max_batch=8, max_seq=2048,
                           port=port, seed=seed, params=params,
                           kv_cache=kv_cache, speculate_k=k,
                           decode_steps_per_call=decode_steps_per_call)
@@ -2776,7 +2799,7 @@ def phase_serve_spec(torch, seed, params, phase, kv_cache='paged',
                                            'repeated',
                               kernel_launches={**flash_after,
                                                **paged_after},
-                              k3_launches_by_sq=by_sq)
+                              k3_launches_by_sq=by_sq, reduced=cut)
             if k:
                 rounds = verify_calls + fused_calls * (
                     decode_steps_per_call or 1)
@@ -2987,6 +3010,268 @@ def phase_serve_mesh1(torch, seed, params):
     require(pool_ok, 'serve_mesh1: the mesh pool is not its own '
                      'contiguous tensor of the local shape')
     return k1
+
+
+GANG_MAX_SEQ = 1024           # serve_gang: both ranks' max_seq (the 8
+                              # prompts + N_NEW fit; the auto-sized pools
+                              # of two 7B engines share one card)
+GANG_HB_TIMEOUT_S = 1.0       # serve_gang's crash check: heartbeat bound
+GANG_CRASH_AT = 40            # ... and the follower heartbeat that dies
+
+
+def _gang_follower(port, gang_id, model, extra=(), env=None):
+    """Rank 1 of a replicated gang: ``python -m skypilot_tpu_torch.serve.
+    server --gang-rank 1`` under the launch-env contract, its stdout
+    piped (its exit summary is one JSON line)."""
+    env = dict(os.environ if env is None else env,
+               SKYTPU_COORDINATOR=f'http://127.0.0.1:{port}',
+               SKYTPU_RANK='1', SKYTPU_WORLD='2', SKYTPU_GANG_ID=gang_id,
+               SKYTPU_GANG_HEARTBEAT='0.05',
+               SKYTPU_GANG_HEARTBEAT_TIMEOUT='30',
+               SKYTPU_GANG_JOIN_TIMEOUT='300')
+    return subprocess.Popen(
+        [sys.executable, '-m', 'skypilot_tpu_torch.serve.server',
+         '--gang-rank', '1', '--model', model, '--device', 'cuda',
+         '--max-batch', '8', '--max-seq', str(GANG_MAX_SEQ), *extra],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+
+
+def _follower_summary(out):
+    for line in (out or '').splitlines():
+        if line.startswith('{"gang_follower"'):
+            return json.loads(line)['gang_follower']
+    return None
+
+
+def _await(cond, timeout, what):
+    t0 = time.monotonic()
+    while not cond():
+        require(time.monotonic() - t0 < timeout, f'serve_gang: {what} '
+                f'not within {timeout} s')
+        time.sleep(0.01)
+    return time.monotonic() - t0
+
+
+def phase_serve_gang(torch, seed):
+    """A replicated gang of world 2 on the one card (``serve/gang.py``):
+    rank 0 a ``ModelServer`` on llama2-7b bf16 at full width and depth,
+    paged, ``decode_impl`` auto (K1), random weights from ``seed``;
+    rank 1 a separate ``python -m skypilot_tpu_torch.serve.server
+    --gang-rank 1`` process under the launch-env contract, building the
+    same engine from the same seed on the same card (two copies of the
+    weights). The 8 requests x N_NEW tokens through rank 0's HTTP front
+    end; rank 1 replays the op log. The line carries the join seconds,
+    each rank's K1 launches over the served requests (rank 1's from its
+    exit summary: its replay, its warm-up excluded), whether the
+    digests of every finished request are equal, the drain acked by
+    both ranks, and a ``gang_member_crash`` on rank 1 of a second,
+    tiny gang (the same code path; the model does not enter the
+    heartbeat): the failure cause and the seconds from rank 1's last
+    heartbeat to rank 0 failing, against the heartbeat bound. A mesh gang across
+    cards, replicated kv heads at tp > 1 and dp-split prefill need
+    several ranks of a mesh, and NCCL refuses two ranks on one GPU:
+    they are held on the CPU only."""
+    from skypilot_tpu_torch.models import configs
+    from skypilot_tpu_torch.ops import paged_attention as pa
+    from skypilot_tpu_torch.serve import gang as gang_lib
+    from skypilot_tpu_torch.serve.server import ModelServer
+    cfg = configs.LLAMA2_7B
+    _fresh_registry()
+    port = _free_port()
+    # heartbeat_s 0.5: stop() then waits 1 s for rank 1's shutdown ack
+    # (rank 1 itself syncs every 0.05 s).
+    spec = gang_lib.GangSpec(gang_id='smoke-gang', rank=0, world=2,
+                             join_timeout_s=300.0, heartbeat_s=0.5,
+                             heartbeat_timeout_s=30.0)
+    t_build = time.monotonic()
+    srv = ModelServer(cfg, port=port, max_batch=8, max_seq=GANG_MAX_SEQ,
+                      seed=seed, gang=spec, step_watchdog_s=0,
+                      device='cuda')
+    srv.start(block=False)
+    proc = _gang_follower(port, 'smoke-gang', cfg.name,
+                          ('--seed', str(seed)))
+    follower = None
+    try:
+        srv.wait_ready(600)
+        join_s = _await(lambda: srv._gang.all_joined
+                        or proc.poll() is not None, 600, 'the barrier')
+        require(srv._gang.all_joined, f'serve_gang: rank 1 exited '
+                f'({proc.poll()}) before joining')
+        build_s = time.monotonic() - t_build
+        k1_key = 'paged_decode_attention[bf16]'
+        counts, ttfts, wall = _drive(port, cfg, seed,
+                                     pa.reset_launch_counts)
+        k1_rank0 = pa.launch_counts[k1_key]
+        _await(lambda: srv._gang.status()['members']['1']['applied']
+               == srv._gang.status()['ops'], 120, 'rank 1 catching up')
+        srv.begin_drain(60)
+        drain_s = _await(lambda: srv.drain_status()['drained'], 90,
+                         'the gang drain')
+        drain = srv.drain_status()
+        status = srv._gang.status()
+        leader_digests = dict(srv._gang.digest.finished)
+        gang_error = srv._error
+    finally:
+        srv.stop()
+        try:
+            out, err = proc.communicate(timeout=120)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+        follower = _follower_summary(out)
+    del srv
+    _release(torch)
+    require(proc.returncode == 0 and follower is not None,
+            f'serve_gang: rank 1 rc {proc.returncode}: {err[-2000:]}')
+    k1_rank1 = follower['launches'].get(k1_key, 0)
+    finished = follower['finished']
+    digests_equal = (len(finished) >= len(counts) and all(
+        leader_digests.get(int(r)) == d for r, d in finished.items()))
+    crash = _gang_crash_check(torch)
+    layout = _kv_layout_check(torch)
+    line = {'phase': 'serve_gang', 'model': cfg.name, 'weights': 'bfloat16',
+            'kv_cache': 'paged', 'decode_impl': 'auto (K1)',
+            'plane': 'replicated', 'world': 2, 'ranks_on_card': 2,
+            'max_seq': GANG_MAX_SEQ, 'requests': len(counts),
+            'new_tokens': N_NEW, 'join_s': status['join_seconds'],
+            'barrier_wait_s': join_s,
+            'build_and_join_s': build_s, 'wall_s': wall,
+            'ttft_ms': sorted(ttfts),
+            'k1_launches': {'rank0': k1_rank0, 'rank1': k1_rank1},
+            'ops': status['ops'], 'ops_applied_rank1':
+                follower['ops_applied'],
+            'finished_digests': len(finished),
+            'digests_equal': digests_equal,
+            'drain_s': drain_s,
+            'drain_acked_by_both': bool(drain.get('gang_drain_acked')
+                                        and drain['drained']),
+            'rank1_exit': follower['exit'], 'gang_error': gang_error,
+            'crash': crash, 'kv_layout_k1': layout,
+            'kv_layout_tol_out': TOL_OUT, 'reduced': None,
+            'multi_card': False,
+            'held_on_the_cpu_only': 'a mesh gang across cards, replicated '
+                                    'kv heads at tp > 1 and dp-split '
+                                    'prefill: each needs several mesh '
+                                    'ranks, and NCCL refuses two ranks on '
+                                    'one GPU',
+            'card': _card_label()}
+    emit(line)
+    require(gang_error is None, f'serve_gang: the gang failed: {gang_error}')
+    require(k1_rank0 > 0 and k1_rank1 > 0,
+            f'serve_gang: K1 launches {k1_rank0} / {k1_rank1}')
+    require(digests_equal, 'serve_gang: the digests differ')
+    require(line['drain_acked_by_both'], 'serve_gang: drain not acked')
+    require(all(c['max_abs_err_out'] <= TOL_OUT for c in layout.values()),
+            f'serve_gang: K1 through the kv-head layout {layout}')
+    require(crash['cause'] == 'heartbeat_lost'
+            and crash['detect_s'] <= GANG_HB_TIMEOUT_S + 2.0,
+            f'serve_gang: crash check {crash}')
+    return k1_rank0 + k1_rank1
+
+
+def _kv_layout_check(torch):
+    """K1 through the replicated kv-head layout (``mesh.kv_head_layout``:
+    this rank's q heads placed in a virtual query over every kv head,
+    ``mesh.attend_local_heads``) against the plain version on the kv
+    heads expanded per local q head (group 1), bf16 pools at d 128, 8
+    slots of mixed lengths: llama3-70b's 64 q / 8 kv at tp 16 (rank 5:
+    its 4 q heads read kv head 2, the aligned case) and 6 q / 3 kv at tp
+    2 (rank 1: q heads 3, 4, 5 read kv heads 1, 2, 2). A tp > 1 mesh
+    cannot run on one card, so this holds the kernel path of the layout
+    and nothing of the mesh. Returns the worst error of the normalised
+    outputs of the live slots per case."""
+    import dataclasses
+    from skypilot_tpu_torch.models import configs
+    from skypilot_tpu_torch.ops import paged_attention as pa
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    base = dataclasses.replace(configs.LLAMA2_7B, head_dim_override=128)
+    cases = {'64q_8kv_tp16_rank5': (dataclasses.replace(
+                 base, n_heads=64, n_kv_heads=8), 16, 5),
+             '6q_3kv_tp2_rank1': (dataclasses.replace(
+                 base, n_heads=6, n_kv_heads=3), 2, 1)}
+    lengths = [0, 1, 100, 512, 700, 1024, 333, 64]
+    out = {}
+    for name, (cfg, tp, rank) in cases.items():
+        positions, nv = mesh_lib.kv_head_layout(
+            cfg, mesh_lib.MeshSpec.for_serving(tp=tp), tp_rank=rank)
+        hkv = cfg.n_kv_heads
+        q, pk, pv, ks, vs, table, lens = _make_paged_inputs(
+            torch, slots=8, hq=len(positions), hkv=hkv, d=128, page=128,
+            P=8, lengths=lengths, L=2, dtype=torch.bfloat16, seed=11)
+
+        def k1(qv, k, v):
+            acc, _, l = pa.paged_decode_attention(
+                qv[:, 0].contiguous(), pk, pv, table, lens, ks, vs, layer=1)
+            return (acc / l.clamp(min=1e-30)[..., None])[:, None]
+
+        plan = {'kv_groups': (positions, nv),
+                'kv_index': torch.tensor(positions, device='cuda')}
+        with mesh_lib.scope(None, plan):
+            got = mesh_lib.attend_local_heads(k1, q[:, None], None,
+                                              None)[:, 0]
+        torch.cuda.synchronize()
+        idx = torch.tensor([p // (nv // hkv) for p in positions],
+                           device='cuda')
+        acc, _, l = pa.paged_decode_attention_reference(
+            q, pk.index_select(2, idx).contiguous(),
+            pv.index_select(2, idx).contiguous(), table, lens, layer=1)
+        want = acc / l.clamp(min=1e-30)[..., None]
+        live = lens > 0
+        out[name] = {'positions': list(positions), 'virtual_heads': nv,
+                     'max_abs_err_out': (got[live].float()
+                                         - want[live]).abs().max().item()}
+    return out
+
+
+def _gang_crash_check(torch):
+    """A tiny replicated gang on the card whose rank 1 dies at its
+    ``GANG_CRASH_AT``-th heartbeat (``gang_member_crash``, rank 1, kind
+    ``replica_crash``): rank 0 must fail the gang with cause
+    ``heartbeat_lost`` about ``GANG_HB_TIMEOUT_S`` after the death.
+    Returns the cause, the age of rank 1's last heartbeat when rank 0
+    failed (``detect_s``: its death, within one heartbeat period) and
+    the seconds from its process exit (polled every 10 ms) to the
+    failure."""
+    from skypilot_tpu_torch.serve import gang as gang_lib
+    from skypilot_tpu_torch.serve.server import ModelServer
+    port = _free_port()
+    spec = gang_lib.GangSpec(gang_id='smoke-crash', rank=0, world=2,
+                             join_timeout_s=300.0, heartbeat_s=0.05,
+                             heartbeat_timeout_s=GANG_HB_TIMEOUT_S)
+    srv = ModelServer('tiny', port=port, max_batch=8, max_seq=GANG_MAX_SEQ,
+                      gang=spec, step_watchdog_s=0, device='cuda')
+    srv.start(block=False)
+    fault = json.dumps({'seed': 0, 'rules': [
+        {'kind': 'replica_crash', 'site': 'gang_member_crash', 'rank': 1,
+         'at': GANG_CRASH_AT}]})
+    proc = _gang_follower(port, 'smoke-crash', 'tiny',
+                          ('--fault-spec', fault))
+    try:
+        srv.wait_ready(300)
+        _await(lambda: proc.poll() is not None, 300, 'rank 1 dying')
+        died = time.monotonic()
+        joined = srv._gang.all_joined
+        _await(lambda: srv._error is not None, 30, 'rank 0 failing')
+        after_exit_s = time.monotonic() - died
+        # Rank 1's last heartbeat is its death, give or take one period.
+        detect_s = srv._gang.status()['members']['1']['heartbeat_age_s']
+        failed = srv._gang.failed or ''
+        cause = ('heartbeat_lost' if 'heartbeat lost' in failed
+                 else failed[:80])
+        rc = proc.returncode
+    finally:
+        srv.stop()
+        if proc.poll() is None:
+            proc.kill()
+        proc.communicate()
+    del srv
+    _release(torch)
+    return {'model': 'tiny', 'joined_first': joined, 'rank1_rc': rc,
+            'cause': cause, 'detect_s': detect_s,
+            'after_process_exit_s': after_exit_s,
+            'heartbeat_timeout_s': GANG_HB_TIMEOUT_S,
+            'crash_at_heartbeat': GANG_CRASH_AT}
 
 
 MESH_OPTS_REQUESTS = 4        # serve_mesh1_opts: the first 4 prompts of
@@ -3432,6 +3717,7 @@ def phase_kv_checkpoint(torch, seed, params):
                for n in KV_TAILS]
     keys_prompt = [int(t) for t in rng.integers(3, vocab, KV_PREFIX + 64)]
     card = _card_label()
+    cut_cfg, params, cut = _cut_7b(params)
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, 'kv.ckpt')
         lines = {}
@@ -3440,7 +3726,7 @@ def phase_kv_checkpoint(torch, seed, params):
             port = _free_port()
             t0 = time.monotonic()
             _fresh_registry()
-            srv = ModelServer('llama2-7b', max_batch=8, max_seq=2048,
+            srv = ModelServer(cut_cfg, max_batch=8, max_seq=2048,
                               port=port, params=params,
                               checkpoint_path=path if name == 'warm'
                               else None)
@@ -3502,7 +3788,7 @@ def phase_kv_checkpoint(torch, seed, params):
              for k in ('ttft_ms', 'prefix_hits', 'ready_s', 'decode_steps',
                        'kernel_launches', 'peak_mem_gb', 'n_pages',
                        'graph_captures')},
-          'warm_boot': warm['warm_boot']})
+          'warm_boot': warm['warm_boot'], 'reduced': cut})
     return k1
 
 
@@ -4676,17 +4962,12 @@ def _checkpoint_bytes(cfg):
                for k, shape in weights.hf_shapes(cfg).items())
 
 
-def _synthetic_checkpoint(torch, cfg, seed, extra_bytes=0, n_layers=None):
-    """``cfg`` written by the port's ``synth.py`` into a new temporary
-    directory at full width, at the depth ``n_layers`` (full depth when
-    None) unless the disk's free bytes (less CKPT_DISK_MARGIN and
-    ``extra_bytes``, room for what the phase writes beside it) cannot
-    hold it: then depth only is cut further. Returns (path, the config
-    written, a JSON dict of the write)."""
+def _plan_checkpoint(cfg, extra_bytes, n_layers):
+    """Where and at what depth ``_synthetic_checkpoint`` writes ``cfg``:
+    (path, the config to write, its ``reduced``, the free disk bytes)."""
     import dataclasses
     import shutil
     import tempfile
-    from skypilot_tpu_torch.models import synth
     path = tempfile.mkdtemp(prefix=f'skt_smoke_{cfg.name}_')
     free = shutil.disk_usage(path).free
     room = free - CKPT_DISK_MARGIN - extra_bytes
@@ -4705,12 +4986,60 @@ def _synthetic_checkpoint(torch, cfg, seed, extra_bytes=0, n_layers=None):
             n, written.n_layers))
         reduced = {'n_layers': [cfg.n_layers, written.n_layers],
                    'why': f'free disk {free} bytes'}
+    return path, written, reduced, free
+
+
+def _synthetic_checkpoint(torch, cfg, seed, extra_bytes=0, n_layers=None):
+    """``cfg`` written by the port's ``synth.py`` into a new temporary
+    directory at full width, at the depth ``n_layers`` (full depth when
+    None) unless the disk's free bytes (less CKPT_DISK_MARGIN and
+    ``extra_bytes``, room for what the phase writes beside it) cannot
+    hold it: then depth only is cut further. Returns (path, the config
+    written, a JSON dict of the write)."""
+    from skypilot_tpu_torch.models import synth
+    path, written, reduced, free = _plan_checkpoint(cfg, extra_bytes,
+                                                    n_layers)
     t0 = time.monotonic()
     synth.write_synthetic_hf_checkpoint(path, written, seed=seed)
     info = {'preset': cfg.name, 'bytes': _checkpoint_bytes(written),
             'write_s': time.monotonic() - t0, 'free_disk_bytes': free,
             'n_params': written.num_params, 'reduced': reduced}
     return path, written, info
+
+
+def _start_synthetic_checkpoint(cfg, seed, extra_bytes=0, n_layers=None):
+    """``_synthetic_checkpoint``'s write started in a child process, so
+    that it overlaps other phases (the write is host-bound: the random
+    draw and the disk). ``_finish_synthetic_checkpoint`` waits for it."""
+    path, written, reduced, free = _plan_checkpoint(cfg, extra_bytes,
+                                                    n_layers)
+    code = ('import dataclasses, sys\n'
+            'from skypilot_tpu_torch.models import configs, synth\n'
+            'cfg = dataclasses.replace(configs.get_config(sys.argv[1]), '
+            'n_layers=int(sys.argv[2]))\n'
+            'synth.write_synthetic_hf_checkpoint(sys.argv[3], cfg, '
+            'seed=int(sys.argv[4]))\n')
+    proc = subprocess.Popen(
+        [sys.executable, '-c', code, cfg.name, str(written.n_layers), path,
+         str(seed)], cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    info = {'preset': cfg.name, 'bytes': _checkpoint_bytes(written),
+            'free_disk_bytes': free, 'n_params': written.num_params,
+            'reduced': reduced, 'written_beside_earlier_phases': True}
+    return proc, path, written, info, time.monotonic()
+
+
+def _finish_synthetic_checkpoint(started):
+    """Wait for a write ``_start_synthetic_checkpoint`` started: (path,
+    config written, info with ``write_s`` from its start and
+    ``waited_s``, the part no other phase overlapped)."""
+    proc, path, written, info, t0 = started
+    t_wait = time.monotonic()
+    _, err = proc.communicate(timeout=600)
+    require(proc.returncode == 0, f'checkpoint write of {info["preset"]} '
+            f'failed: {err[-2000:]}')
+    now = time.monotonic()
+    return path, written, dict(info, write_s=now - t0, waited_s=now - t_wait)
 
 
 def phase_ckpt_int8(torch, seed, path, info):
@@ -4864,12 +5193,28 @@ def phase_checkpoints(torch, seed):
     full width, depth cut the same way, served on the paged engine
     (serve_qwen2: K1 at group 7).
     Each directory is deleted after its phases."""
+    import dataclasses
     import shutil
     from skypilot_tpu_torch.models import configs
-    gemma = configs.GEMMA_2B
-    path, written, info = _synthetic_checkpoint(
-        torch, gemma, seed, extra_bytes=_checkpoint_bytes(gemma) // 2,
-        n_layers=CKPT_LAYERS['gemma-2b'])
+    gemma, qwen = configs.GEMMA_2B, configs.QWEN2_7B
+    gemma_bytes = _checkpoint_bytes(dataclasses.replace(
+        gemma, n_layers=CKPT_LAYERS['gemma-2b']))
+    # qwen2-7b is written in a child process while the gemma phases run
+    # (its embedding and unembedding, 152064 x 3584 each, make it the
+    # slower write whatever its depth).
+    qwen_started = _start_synthetic_checkpoint(
+        qwen, seed, extra_bytes=gemma_bytes * 3 // 2,
+        n_layers=CKPT_LAYERS['qwen2-7b'])
+    try:
+        path, written, info = _synthetic_checkpoint(
+            torch, gemma, seed,
+            extra_bytes=gemma_bytes // 2 + qwen_started[3]['bytes'],
+            n_layers=CKPT_LAYERS['gemma-2b'])
+    except BaseException:
+        qwen_started[0].kill()
+        qwen_started[0].communicate()
+        shutil.rmtree(qwen_started[1], ignore_errors=True)
+        raise
     emit({'phase': 'checkpoint_write', **info})
     try:
         require(written.n_heads // written.n_kv_heads == 8
@@ -4882,11 +5227,18 @@ def phase_checkpoints(torch, seed):
                          model_path=path, extra=extra)
         phase_ckpt_int8(torch, seed, path, info)
         phase_train_ckpt(torch, seed, path, info)
+    except BaseException:
+        qwen_started[0].kill()
+        qwen_started[0].communicate()
+        shutil.rmtree(qwen_started[1], ignore_errors=True)
+        raise
     finally:
         shutil.rmtree(path, ignore_errors=True)
-    qwen = configs.QWEN2_7B
-    path, written, info = _synthetic_checkpoint(
-        torch, qwen, seed, n_layers=CKPT_LAYERS['qwen2-7b'])
+    try:
+        path, written, info = _finish_synthetic_checkpoint(qwen_started)
+    except BaseException:
+        shutil.rmtree(qwen_started[1], ignore_errors=True)
+        raise
     emit({'phase': 'checkpoint_write', **info})
     try:
         require(qwen.n_heads // qwen.n_kv_heads == 7, f'{qwen}')
@@ -6329,6 +6681,7 @@ def main(argv=None) -> int:
                                                 'spec_slot', bf16_params))
         del bf16_params
         _release(torch)
+        gang_k1 = phase_serve_gang(torch, args.seed)
         phase_decode_audits(torch)
         phase_audit_presets(torch)
         worst['flash_fwd_chunk'] = max(worst['flash_fwd_chunk'],
@@ -6399,7 +6752,8 @@ def main(argv=None) -> int:
                                + ckpt_k1 + sched_k1 + shed_k1 + drain_k1
                                + relay_k1 + lora_k1 + lora_serve_k1
                                + fault_k1 + mesh1_k1
-                               + mesh_opts['paged_decode_attention[bf16]'],
+                               + mesh_opts['paged_decode_attention[bf16]']
+                               + gang_k1,
                                worst['paged_decode'], times['paged_decode']),
                  launches_by_path={
                      'serve': bf16_launches,
@@ -6416,7 +6770,8 @@ def main(argv=None) -> int:
                      'fault_watchdog': fault_k1,
                      'serve_mesh1': mesh1_k1,
                      'serve_mesh1_opts':
-                         mesh_opts['paged_decode_attention[bf16]']}),
+                         mesh_opts['paged_decode_attention[bf16]'],
+                     'serve_gang': gang_k1}),
             dict(_kernel_entry('paged_decode_int8', 'paged_decode.cu',
                                'paged_attention.py:103',
                                int8_launches + moe_launches

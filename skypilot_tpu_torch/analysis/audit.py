@@ -96,7 +96,7 @@ import numpy as np
 import torch
 
 from skypilot_tpu_torch.analysis import costmodel
-from skypilot_tpu_torch.models import configs
+from skypilot_tpu_torch.models import configs, llama
 from skypilot_tpu_torch.models.configs import ModelConfig
 from skypilot_tpu_torch.parallel import mesh as mesh_lib
 from skypilot_tpu_torch.utils.device import (DeviceLike, host_sync_count,
@@ -522,14 +522,57 @@ def expected_census(engine) -> Dict[str, Dict[str, int]]:
     return {'spec': one}
 
 
-def expected_prefill_census(engine) -> Dict[str, int]:
-    """The collectives of one prefill call of a mesh engine (a paged
-    chunk, or a slot-engine prefill call): the forward's on every row
-    (prefill is not split over dp), W8A8's MAX reductions under
-    ``prefill_w8a8``. Prefill runs eagerly, so this is what
-    ``mesh.collective_counts`` gains around one call."""
-    return _forward_census(engine, dp_split=False,
-                           w8a8=bool(engine.prefill_w8a8))
+def expected_prefill_census(engine, rows: Optional[int] = None
+                            ) -> Dict[str, int]:
+    """The collectives of one prefill call of ``rows`` batch rows
+    (default ``max_batch``) on a mesh engine (a paged chunk, or a
+    slot-engine prefill call): the forward's, W8A8's MAX reductions
+    under ``prefill_w8a8``, and when dp splits the rows
+    (``mesh.prefill_dp_rows``: dp > 1 dividing ``rows``) ONE all-gather
+    over dp of the landed rows (with the last hidden states), plus an
+    MoE layer's all-gather of its input rows. Prefill runs eagerly, so
+    this is what ``mesh.collective_counts`` gains around one call."""
+    dp = engine.mesh.shape['dp']
+    rows = engine.max_batch if rows is None else rows
+    split = dp > 1 and rows % dp == 0
+    out = _forward_census(engine, dp_split=split,
+                          w8a8=bool(engine.prefill_w8a8))
+    if split:
+        out['all_gather[dp]'] = out.get('all_gather[dp]', 0) + 1
+    return out
+
+
+def _record_prefill_census(census: Dict[str, Dict[str, int]],
+                           rows: List[int]):
+    """Wrap the prefill functions the engines call
+    (``paged.paged_prefill_chunk``, ``llama.prefill_rows``) to keep the
+    collectives of the last prefill call (label 'prefill') and its batch
+    rows in ``rows[0]``; returns the undo."""
+    from skypilot_tpu_torch.inference import paged as paged_mod
+    targets = [(paged_mod, 'paged_prefill_chunk', 3),
+               (llama, 'prefill_rows', 1)]
+    saved = []
+    for mod, name, tok_arg in targets:
+        inner = getattr(mod, name)
+        saved.append((mod, name, inner))
+
+        def shim(*args, _inner=inner, _tok=tok_arg, **kwargs):
+            if kwargs.get('all_logits'):
+                return _inner(*args, **kwargs)
+            before = dict(mesh_lib.collective_counts)
+            out = _inner(*args, **kwargs)
+            census['prefill'] = {
+                k: n - before.get(k, 0)
+                for k, n in mesh_lib.collective_counts.items()
+                if n != before.get(k, 0)}
+            rows[0] = int(args[_tok].shape[0])
+            return out
+        setattr(mod, name, shim)
+
+    def undo():
+        for mod, name, inner in saved:
+            setattr(mod, name, inner)
+    return undo
 
 
 def _attach_costs(report: AuditReport, engine,
@@ -687,6 +730,8 @@ def _audit_engine_rounds(report: AuditReport, kind: str, cfg, dev,
         _record_keys(engine, keys, capture)
         wrapped = ('_decode_call',)
     census: Dict[str, Dict[str, int]] = {}
+    prefill_rows = [0]
+    undo_prefill = None
     if mesh is not None:
         _record_collectives(engine, census)
         wrapped += ('_run_graph',)
@@ -694,12 +739,21 @@ def _audit_engine_rounds(report: AuditReport, kind: str, cfg, dev,
         one_round()
     census.clear()
     shapes0 = dict(mesh_lib.collective_shapes)
-    _audited(engine, report, keys, rounds, one_round, wrapped)
+    if mesh is not None:
+        undo_prefill = _record_prefill_census(census, prefill_rows)
+    try:
+        _audited(engine, report, keys, rounds, one_round, wrapped)
+    finally:
+        if undo_prefill is not None:
+            undo_prefill()
     _attach_costs(report, engine, capture)
     if mesh is not None:
         report.mesh = mesh_lib.mesh_axis_sizes(mesh)
         report.collectives = dict(census)
         report.expected_collectives = expected_census(engine)
+        if 'prefill' in census:
+            report.expected_collectives['prefill'] = \
+                expected_prefill_census(engine, prefill_rows[0])
         report.collective_shapes = {
             k: n - shapes0.get(k, 0)
             for k, n in mesh_lib.collective_shapes.items()

@@ -75,7 +75,13 @@ when they do not divide); the constructor and every mirrored method
 followers first, so the host state stays identical everywhere. The
 decode rows split over dp: each dp rank decodes its block of slots and
 the merge all-gathers the ring rows and tokens over dp first, so every
-dp replica of the KV stays identical (prefill runs on every rank).
+dp replica of the KV stays identical. A prefill call's batch rows split
+over dp too when dp divides them (``mesh.prefill_dp_rows``, the
+reference's placement): each dp rank runs its block, and the landed
+rows and last hidden states are all-gathered over dp once a call.
+Several kv heads that tp does not divide are replicated on every rank
+(one kv shard, as the reference's byte counts have it), and each rank's
+q heads attend through ``mesh.kv_head_layout``'s virtual query.
 Under a mesh the engine keeps every option: MoE experts split their ffn
 width over tp (each rank holds every expert) and, under dp, route every
 row of the batch (``llama._attn_outputs``); the multi-LoRA bank stays
@@ -86,7 +92,11 @@ gather the committed rows before the commit; W8A8 prefill takes the row
 absmax of a row-parallel product's input over tp (``quantization.
 quantize_rows``).
 
-Left for later slices: the gang hooks.
+Gang serving (``serve/gang.py``): a replicated gang's followers replay
+rank 0's op log on their own engines through ``follower_step``,
+``drain_pipeline``, ``adopt_trace_context``, ``cancel``,
+``release_hold`` and ``warm_prefix``; a mesh gang's followers are this
+engine's mesh ranks.
 """
 from __future__ import annotations
 
@@ -415,7 +425,7 @@ class _EngineBase:
     # with (local heads and mlp width), and this dp rank's decode rows
     # (None: every row).
     mesh: Optional[mesh_lib.ServingMesh] = None
-    _tp_plan: Optional[Dict[str, bool]] = None
+    _tp_plan: Optional[Dict[str, Any]] = None
     _dp_rows: Optional[slice] = None
 
     def __init_subclass__(cls, **kwargs):
@@ -427,8 +437,7 @@ class _EngineBase:
         """Bind the serving mesh (None: meshless) and return the device
         this rank runs on: the mesh's for a rank (``device`` must name
         the same type), else ``device`` resolved. A batch that does not
-        split over dp, and a layout ``mesh.tp_plan`` refuses, raise
-        ``ValueError``."""
+        split over dp raises ``ValueError``."""
         self.mesh = mesh
         self.shard_cfg = cfg
         if mesh is None:
@@ -439,6 +448,10 @@ class _EngineBase:
                              f'{mesh.device.type}')
         self._tp_plan = mesh_lib.tp_plan(cfg, mesh)
         self.shard_cfg = mesh_lib.shard_config(cfg, mesh)
+        if self._tp_plan['kv_groups'] is not None:
+            self._tp_plan['kv_index'] = torch.tensor(
+                self._tp_plan['kv_groups'][0], dtype=torch.long,
+                device=mesh.device)
         dp = mesh.shape['dp']
         if max_batch % dp:
             raise ValueError(f'max_batch={max_batch} must divide over '
@@ -449,6 +462,15 @@ class _EngineBase:
             self._dp_rows = slice(mesh.dp_rank * per,
                                   (mesh.dp_rank + 1) * per)
         return mesh.device
+
+    def _prefill_split(self, n: int) -> Optional[slice]:
+        """This dp rank's block of a prefill call's ``n`` batch rows
+        (``mesh.prefill_dp_rows``); None without dp or when dp does not
+        divide ``n``."""
+        if self._dp_rows is None:
+            return None
+        return mesh_lib.prefill_dp_rows(n, self.mesh.shape['dp'],
+                                        self.mesh.dp_rank)
 
     def _rows(self, t: Optional[torch.Tensor], dim: int = 0):
         """This dp rank's decode rows of a per-slot tensor (``t`` itself
@@ -1212,11 +1234,26 @@ class _EngineBase:
 
     def drain_pipeline(self) -> List[Tuple[int, int, bool]]:
         """Read back every call in flight; returns their events (the
-        caller routes them like ``step()`` events)."""
+        caller routes them like ``step()`` events). The gang ``flush``
+        op: rank 0 drains before a checkpoint export and the followers
+        of a replicated gang drain at the same op-log position, so every
+        rank's later event stream stays aligned."""
         events: List[Tuple[int, int, bool]] = []
         while self._pending:
             events.extend(self._process_one())
         return events
+
+    def follower_step(self, horizon: int = 1, *,
+                      prepared: bool = False
+                      ) -> List[Tuple[int, int, bool]]:
+        """A replicated gang follower's step (``serve/gang.py``): the
+        step rank 0 recorded, with the same proposal preparation and the
+        same fused horizon; returns the step's events for the
+        finished-request digests (the caller reaps finished requests; no
+        scheduler runs on a follower)."""
+        if prepared and getattr(self, 'speculate_k', 0):
+            self.prepare_proposals()
+        return self.step(horizon=horizon)
 
     # The prefix checkpoint: the paged engine overrides these; the slot
     # engine has no prefix cache, so they export and land nothing.
@@ -1774,7 +1811,8 @@ class InferenceEngine(speculative.SpeculativeMixin, _EngineBase):
         last, rows = llama.prefill_rows(
             self.params, tokens_d, lens_d, self.cfg,
             attn_impl=self.attn_impl, quantize_rows=self.cache.quant_mode,
-            w8a8=self.prefill_w8a8, mlora_idx=adp_d)
+            w8a8=self.prefill_w8a8, mlora_idx=adp_d,
+            dp_rows=self._prefill_split(tokens.shape[0]))
         last = llama.apply_vocab_mask(last, vm_d)
         self.prefill_calls['uncached'] += 1
         first = llama.mask_nonfinite_tokens(
@@ -1819,7 +1857,8 @@ class InferenceEngine(speculative.SpeculativeMixin, _EngineBase):
             self.params, tokens_d, last_idx + 1, self.cfg,
             attn_impl=self.attn_impl, quantize_rows=self.cache.quant_mode,
             cache_kv=cache_kv, cache_len=starts_d if kv_bucket else None,
-            w8a8=self.prefill_w8a8, mlora_idx=adp_d)
+            w8a8=self.prefill_w8a8, mlora_idx=adp_d,
+            dp_rows=self._prefill_split(n))
         # Completing rows' first token honours the grammar.
         last = llama.apply_vocab_mask(last, vm_d)
         self.prefill_calls['cached' if kv_bucket else 'uncached'] += 1

@@ -458,6 +458,7 @@ def paged_prefill_chunk(
     vocab_mask: Optional[torch.Tensor] = None,  # [n, vocab] bool mask for
                                        #   the completing rows' draw
     w8a8: bool = False,
+    dp_rows: Optional[slice] = None,   # a dp rank's block of the n rows
 ):
     """One fixed-size prefill chunk for ``n`` slots: attends against the
     pages written so far (each slot's ``lengths``) plus causal
@@ -470,33 +471,54 @@ def paged_prefill_chunk(
     an earlier layer's pool, so this equals the reference's merge after
     the layer scan without its [L, n, chunk] transient. ``w8a8`` runs
     the layer loop inside ``quantization.w8a8_region`` (int8 activations
-    in the layer matmuls); the unembedding stays W8A16."""
+    in the layer matmuls); the unembedding stays W8A16.
+
+    ``dp_rows`` (a serving mesh's dp rank's block of the batch rows,
+    ``mesh.prefill_dp_rows``): the layers run on those rows only
+    (``mesh.dp_split``, so an MoE layer still routes the whole batch),
+    and every layer's landed rows and the rows' last hidden states are
+    all-gathered over dp in one collective after the layer loop; every
+    dp replica of the pool then writes every row, and the logits and
+    the draw are the whole batch's, as without dp."""
     n, chunk = tokens.shape
     len0 = lengths
-    x = llama._embed_tokens(params, tokens.long(), cfg)
-    positions = len0.long()[:, None] + torch.arange(
+    rs = slice(None) if dp_rows is None else dp_rows
+    x = llama._embed_tokens(params, tokens[rs].long(), cfg)
+    positions = len0[rs].long()[:, None] + torch.arange(
         chunk, device=tokens.device)[None, :]
     flat_idx = _flat_write_indices(table_p, len0, chunk, valid,
                                    cache.page_size)
-    with quantization.w8a8_region(w8a8):
+    k_parts, v_parts = [], []
+    with quantization.w8a8_region(w8a8), mesh_lib.dp_split(dp_rows):
         for li in range(cfg.n_layers):
-            ck, cv, sck, scv = _gather_layer(cache, li, table_p)
+            ck, cv, sck, scv = _gather_layer(cache, li, table_p[rs])
 
             def attn_fn(q, k, v, ck=ck, cv=cv, sck=sck, scv=scv):
-                return cached_attention(q, k, v, ck, cv, len0,
+                return cached_attention(q, k, v, ck, cv, len0[rs],
                                         k_scale=sck, v_scale=scv)
 
             x, (k_rows, v_rows), _ = llama._layer_core(
                 llama.layer_params(params, li), x, cfg, positions, attn_fn,
-                mlora_idx)
+                None if mlora_idx is None else mlora_idx[rs])
+            if dp_rows is not None:
+                k_parts.append(k_rows)
+                v_parts.append(v_rows)
+                continue
             k_rows, v_rows = _maybe_quantize_rows(
                 (k_rows[None], v_rows[None]), cache.quant_mode)
             _scatter_all(cache, slice(li, li + 1), k_rows, v_rows,
                          flat_idx)
     x = llama.rms_norm(x, params['final_norm'], cfg.norm_eps,
                        cfg.norm_plus_one)
-    idx = torch.clamp(want_idx.long(), 0, chunk - 1)
-    last_x = x[torch.arange(n, device=x.device), idx][:, None]
+    idx = torch.clamp(want_idx[rs].long(), 0, chunk - 1)
+    last_x = x[torch.arange(x.shape[0], device=x.device), idx][:, None]
+    if dp_rows is not None:
+        k_rows, v_rows, last_x = mesh_lib.gather_dp_blocks(
+            (torch.stack(k_parts), torch.stack(v_parts), last_x), (1, 1, 0))
+        k_rows, v_rows = _maybe_quantize_rows((k_rows, v_rows),
+                                              cache.quant_mode)
+        _scatter_all(cache, slice(0, cfg.n_layers), k_rows, v_rows,
+                     flat_idx)
     logits = llama.apply_vocab_mask(
         llama._unembed_logits(params, last_x, cfg)[:, 0], vocab_mask)
     if temps is None:
@@ -825,7 +847,9 @@ class PagedInferenceEngine(speculative.SpeculativeMixin, _EngineBase):
                                          kv_dtype=self.kv_cache_dtype,
                                          device=self.device)
         if decode_impl == 'auto':
-            decode_impl = auto_decode_impl(self.shard_cfg, self.device.type)
+            decode_impl = auto_decode_impl(
+                mesh_lib.attention_config(self.shard_cfg, self._tp_plan),
+                self.device.type)
         if decode_impl not in DECODE_IMPLS:
             raise NotImplementedError(
                 f'decode_impl {decode_impl!r} is not ported; use one of '
@@ -1211,7 +1235,8 @@ class PagedInferenceEngine(speculative.SpeculativeMixin, _EngineBase):
                 valid_d, want_d, self.cfg,
                 temps=temps_d if sample else None, topks=topks_d,
                 topps=topps_d, generator=self._gen, mlora_idx=adp_d,
-                vocab_mask=vm_d, w8a8=self.prefill_w8a8)
+                vocab_mask=vm_d, w8a8=self.prefill_w8a8,
+                dp_rows=self._prefill_split(n))
         chunk_t1 = clock.monotonic()
         for i, slot in enumerate(batch):
             r = self._slots[slot]

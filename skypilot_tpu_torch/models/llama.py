@@ -580,7 +580,10 @@ def _layer_core(layer: Params, x: torch.Tensor, cfg: ModelConfig,
     applies to ``qeinsum``'s output, so it composes with int8 and int4
     weights."""
     q, k, v = _attn_inputs(layer, x, cfg, positions, mlora_idx)
-    x, aux = _attn_outputs(layer, x, attn_fn(q, k, v), cfg, mlora_idx)
+    # Under tp with several replicated kv heads, this rank's q heads
+    # attend through the virtual query of ``mesh.kv_head_layout``.
+    out = mesh_lib.attend_local_heads(attn_fn, q, k, v)
+    x, aux = _attn_outputs(layer, x, out, cfg, mlora_idx)
     return x, (k, v), aux
 
 
@@ -682,6 +685,7 @@ def prefill_rows(
     all_logits: bool = False,
     mlora_idx: Optional[torch.Tensor] = None,   # [n] adapter slot per
                                        # row (-1 = base)
+    dp_rows: Optional[slice] = None,   # a dp rank's block of the n rows
 ):
     """Prompt or chunk prefill for the slot engine. Without
     ``cache_kv``: causal attention over the padded bucket
@@ -701,19 +705,30 @@ def prefill_rows(
     row's adapter from the bank at ``params['layers']['mlora']``.
     ``w8a8`` runs the layer loop inside ``quantization.w8a8_region`` (the
     layer matmuls on int8 activations); the final norm and the
-    unembedding stay W8A16."""
+    unembedding stay W8A16.
+
+    ``dp_rows`` (a serving mesh's dp rank's block of the rows,
+    ``mesh.prefill_dp_rows``): the layers run on those rows only
+    (``mesh.dp_split``), and the emitted rows and the last positions'
+    hidden states are all-gathered over dp in one collective, so the
+    returned rows and logits are the whole batch's (not with
+    ``all_logits``)."""
     n, s = tokens.shape
     dev = tokens.device
-    x = _embed_tokens(params, tokens.long(), cfg)
+    if dp_rows is not None and all_logits:
+        raise ValueError('all_logits is not split over dp')
+    rs = slice(None) if dp_rows is None else dp_rows
+    x = _embed_tokens(params, tokens[rs].long(), cfg)
+    m = x.shape[0]
     steps = torch.arange(s, device=dev)[None, :]
-    positions = (steps.expand(n, s) if cache_len is None
-                 else cache_len.long()[:, None] + steps)
+    positions = (steps.expand(m, s) if cache_len is None
+                 else cache_len[rs].long()[:, None] + steps)
     if cache_kv is not None:
         ck_all, cv_all = cache_kv[0], cache_kv[1]
         ks_all, vs_all = (cache_kv[2], cache_kv[3]) if len(cache_kv) == 4 \
             else (None, None)
     emitted = []
-    with quantization.w8a8_region(w8a8):
+    with quantization.w8a8_region(w8a8), mesh_lib.dp_split(dp_rows):
         for li in range(cfg.n_layers):
             if cache_kv is None:
                 def attn_fn(q, k, v):
@@ -721,18 +736,24 @@ def prefill_rows(
             else:
                 def attn_fn(q, k, v, li=li):
                     return chunk_attention(
-                        q, k, v, ck_all[li], cv_all[li], cache_len,
-                        impl=attn_impl,
-                        k_scale=None if ks_all is None else ks_all[li],
-                        v_scale=None if vs_all is None else vs_all[li])
-            x, (k, v), _ = _layer_core(layer_params(params, li), x, cfg,
-                                       positions, attn_fn, mlora_idx)
+                        q, k, v, ck_all[li][rs], cv_all[li][rs],
+                        cache_len[rs], impl=attn_impl,
+                        k_scale=None if ks_all is None else ks_all[li][rs],
+                        v_scale=None if vs_all is None else vs_all[li][rs])
+            x, (k, v), _ = _layer_core(
+                layer_params(params, li), x, cfg, positions, attn_fn,
+                None if mlora_idx is None else mlora_idx[rs])
             emitted.append(_quantize_rows(k, v, quantize_rows))
     rows = tuple(torch.stack(parts) for parts in zip(*emitted))
     x = rms_norm(x, params['final_norm'], cfg.norm_eps, cfg.norm_plus_one)
     if all_logits:
         return _unembed_logits(params, x, cfg), rows
-    last_x = x[torch.arange(n, device=dev), true_lens.long() - 1][:, None]
+    last_x = x[torch.arange(m, device=dev),
+               true_lens[rs].long() - 1][:, None]
+    if dp_rows is not None:
+        *rows, last_x = mesh_lib.gather_dp_blocks(
+            rows + (last_x,), (1,) * len(rows) + (0,))
+        rows = tuple(rows)
     return _unembed_logits(params, last_x, cfg)[:, 0], rows
 
 

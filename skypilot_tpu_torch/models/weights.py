@@ -493,9 +493,7 @@ def load_checkpoint(path: str, dtype: torch.dtype = torch.bfloat16,
                     ) -> Tuple[ModelConfig, Params]:
     """One-call import: HF dir -> (ModelConfig, params on ``device``).
     ``cut(cfg)`` gives a serving mesh rank's ``leaf_cutter``: the params
-    are then that rank's shard, read tensor by tensor
-    (:func:`load_hf_params`), with no quantized cache read or written
-    (the cache holds the whole tree).
+    are then that rank's shard.
 
     With ``quantize='int8'`` or ``'int4'`` the quantized tree is cached
     next to the checkpoint (``.int8_cache.bin`` or ``.int4_cache.bin`` +
@@ -503,24 +501,34 @@ def load_checkpoint(path: str, dtype: torch.dtype = torch.bfloat16,
     pays the full read and host quantization, later loads map the
     smaller cached tree. A cache whose fingerprint (dtype, shard sizes
     and mtimes) no longer matches is rebuilt; a directory that cannot
-    be written just skips the cache."""
+    be written just skips the cache.
+
+    Under a mesh (``cut``) a valid cache is mapped and each leaf cut to
+    this rank's shard on the host before it is copied to the device, so
+    no rank requantizes or holds the whole tree. A mesh load never
+    writes the cache (it would need the whole tree, or every rank racing
+    to write one file): without a valid cache each rank reads and
+    quantizes its shard tensor by tensor (:func:`load_hf_params`), and a
+    meshless load of the same directory writes the cache that later
+    mesh loads map."""
     _check_quantize(quantize)
     dev = resolve_device(device)
     cfg = config_from_hf(_read_hf_config(path), name=name, dtype=dtype)
-    if cut is not None:
-        return cfg, load_hf_params(path, cfg, quantize=quantize, device=dev,
-                                   cut=cut(cfg))
+    cutter = None if cut is None else cut(cfg)
     cache_file = os.path.join(path, f'.{quantize}_cache.bin')
     fingerprint = _cache_fingerprint(path, dtype)
     if quantize and use_cache and os.path.exists(cache_file):
         try:
             if _read_cache_meta(cache_file) == fingerprint:
-                return cfg, _load_int8_cache(cache_file, dev)
+                return cfg, _load_int8_cache(cache_file, dev, cut=cutter)
             print(f'[weights] {quantize} cache stale (checkpoint or '
                   'dtype changed); requantizing', flush=True)
         except (OSError, ValueError, KeyError) as e:
             print(f'[weights] {quantize} cache unreadable ({e}); '
                   'reloading', flush=True)
+    if cutter is not None:
+        return cfg, load_hf_params(path, cfg, quantize=quantize, device=dev,
+                                   cut=cutter)
     params = load_hf_params(path, cfg, quantize=quantize, device=dev)
     if quantize and use_cache:
         try:
@@ -614,10 +622,14 @@ _CACHE_DTYPES = {'int8': torch.int8, 'uint8': torch.uint8,
                  'uint16': torch.bfloat16, 'float32': torch.float32}
 
 
-def _load_int8_cache(cache_file: str, device: torch.device) -> Params:
+def _load_int8_cache(cache_file: str, device: torch.device,
+                     cut: Optional[Callable] = None) -> Params:
     """The cached int8 or int4 tree on ``device`` (the leaf class from
     the ``.int8``/``.int4`` name suffix); leaves are copied from the
-    mapped file to the device in parallel."""
+    mapped file to the device in parallel. With ``cut`` (a mesh rank's
+    ``leaf_cutter``) each leaf, codes and scales together, is cut to
+    this rank's shard on the host first, so only the shard is copied
+    out of the mapping and to the device."""
     from concurrent.futures import ThreadPoolExecutor
     meta = _read_cache_manifest(cache_file)
     if meta is None or meta.get('version') != 2:
@@ -636,7 +648,8 @@ def _load_int8_cache(cache_file: str, device: torch.device) -> Params:
         else:
             t = torch.frombuffer(mm, dtype=dtype, count=n,
                                  offset=entry['offset']).reshape(shape)
-        return entry['name'], t.to(device, copy=True)
+        return entry['name'], (t if cut is not None
+                               else t.to(device, copy=True))
 
     with ThreadPoolExecutor(max_workers=load_workers()) as ex:
         flat = dict(ex.map(fetch, meta['manifest']))
@@ -660,7 +673,18 @@ def _load_int8_cache(cache_file: str, device: torch.device) -> Params:
             QuantizedWeight4(packed=slot['int4'], scale=slot['scale'])
             if 'int4' in slot else
             QuantizedWeight(int8=slot['int8'], scale=slot['scale']))
-    return params
+    if cut is None:
+        return params
+
+    def shard(path, node):
+        if isinstance(node, dict):
+            return {k: shard(path + (k,), v) for k, v in node.items()}
+        # A leaf that is whole is still the mapping's view: copy it out.
+        leaf = cut(path, node)
+        if isinstance(leaf, (QuantizedWeight, QuantizedWeight4)):
+            return type(leaf)(*(x.to(device, copy=True) for x in leaf))
+        return leaf.to(device, copy=True)
+    return shard((), params)
 
 
 # ---------------------------------------------------------------- export

@@ -41,6 +41,17 @@ def run(rank: int, spec, device_type: str, store_path: str,
         torch.set_num_threads(int(threads or 1))
     mesh = mesh_lib.ServingMesh(spec, rank, device_type, store_path,
                                 timeout_s)
+    serve(mesh)
+
+
+def serve(mesh) -> None:
+    """Serve rank 0's messages on a follower rank's ``mesh`` until
+    ``('stop',)``; a broken mesh exits the process with code 1. The
+    mesh's process group is destroyed (aborted when broken) on the way
+    out. A mesh gang's follower (``serve/server.py`` ``run_follower``)
+    calls this on the mesh :func:`mesh.gang_mesh` built."""
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    rank = mesh.rank
     try:
         while True:
             msg = mesh.recv()

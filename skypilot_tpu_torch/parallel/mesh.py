@@ -34,12 +34,29 @@ per device, and so is this module's:
   communicating.
 
 A follower that dies makes rank 0 raise: before every control message
-rank 0 checks that each follower is alive, and a collective with a dead
-peer fails within the process group's timeout.
+rank 0 checks that each follower it started is alive, and a collective
+with a dead peer fails within the process group's timeout.
 
 Multi-host bootstrap (the reference's ``jax_coordinator_from_url``,
-``initialize_gang_distributed``, ``initialize_distributed_from_env``)
-belongs to gang serving and is not ported yet.
+``initialize_gang_distributed`` and ``initialize_distributed_from_env``,
+as ``init_process_group`` with a ``tcp://host:port`` rendezvous):
+
+- :func:`coordinator_from_url` gives the rendezvous ``host:port`` from a
+  gang's ``SKYTPU_COORDINATOR`` URL (rank 0's HTTP port + 1000, the
+  reference's offset);
+- :func:`initialize_gang_distributed` and
+  :func:`initialize_distributed_from_env` (the training contract:
+  ``SKYTPU_COORDINATOR_ADDRESS``, ``SKYTPU_NUM_NODES``,
+  ``SKYTPU_NODE_RANK``) join the default process group, bounded by a
+  timeout, a no-op for one process, idempotent, and raising on a
+  failed connect;
+- :func:`gang_mesh` builds a :class:`ServingMesh` from processes a
+  launcher already started (one ``python -m
+  skypilot_tpu_torch.serve.server --gang-rank N`` per rank, on one host
+  or several), met over that TCP rendezvous instead of the
+  ``FileStore`` of :func:`make_mesh`. Rank 0 keeps the control channel,
+  the per-call agreement and the census as above; a nonzero rank runs
+  ``parallel/follower.py``'s loop on it.
 """
 from __future__ import annotations
 
@@ -369,7 +386,7 @@ def reset_collective_counts() -> None:
 class _Scope:
     __slots__ = ('mesh', 'plan')
 
-    def __init__(self, mesh: 'ServingMesh', plan: Dict[str, bool]):
+    def __init__(self, mesh: 'ServingMesh', plan: Dict[str, Any]):
         self.mesh = mesh
         self.plan = plan
 
@@ -385,10 +402,10 @@ def active() -> Optional[_Scope]:
 
 
 @contextlib.contextmanager
-def scope(mesh: 'ServingMesh', plan: Dict[str, bool]):
+def scope(mesh: 'ServingMesh', plan: Dict[str, Any]):
     """Make ``mesh`` (with the engine's tp ``plan``: which of heads,
-    kv_heads, mlp and vocab split over tp) the one this thread's
-    collectives run on."""
+    kv_heads, mlp and vocab split over tp, and the replicated kv-head
+    layout) the one this thread's collectives run on."""
     stack = getattr(_tls, 'scopes', None)
     if stack is None:
         stack = _tls.scopes = []
@@ -509,6 +526,40 @@ def gather_dp_rows(x: torch.Tensor
     return all_gather(x, 'dp', 0), rows
 
 
+def prefill_dp_rows(n: int, dp: int, dp_rank: int) -> Optional[slice]:
+    """This dp rank's block of a prefill call's ``n`` batch rows: the
+    reference's placement (the batch splits over the data axes when
+    they divide it, ``paged.py`` ``_pool_shard_axes``), so a split call's
+    rows in rank order are the meshless batch; None (every rank runs
+    every row) without dp or when ``dp`` does not divide ``n``."""
+    if dp <= 1 or n % dp:
+        return None
+    per = n // dp
+    return slice(dp_rank * per, (dp_rank + 1) * per)
+
+
+def gather_dp_blocks(tensors: Sequence[torch.Tensor],
+                     dims: Sequence[int]) -> List[torch.Tensor]:
+    """Every dp rank's block of each of ``tensors``, concatenated along
+    its dim in ``dims`` in rank order, in ONE all-gather over dp: the
+    tensors' bytes are packed into one uint8 buffer (exact for any
+    dtype mix) and split again after the gather."""
+    sc = active()
+    if sc is None:
+        raise RuntimeError('gather_dp_blocks outside a mesh scope')
+    n = sc.mesh.shape['dp']
+    flat = [t.contiguous().view(-1).view(torch.uint8) for t in tensors]
+    sizes = [f.numel() for f in flat]
+    every = all_gather(torch.cat(flat), 'dp', 0).view(n, -1)
+    out, off = [], 0
+    for t, size, dim in zip(tensors, sizes, dims):
+        blocks = [every[r, off:off + size].clone().view(t.dtype)
+                  .view(t.shape) for r in range(n)]
+        out.append(torch.cat(blocks, dim))
+        off += size
+    return out
+
+
 def tp_slice(n: int, logical: str) -> slice:
     """This rank's slice of a dimension of size ``n`` split over tp by
     ``logical`` (the whole dimension when the plan does not split it or
@@ -521,24 +572,90 @@ def tp_slice(n: int, logical: str) -> slice:
     return slice(sc.mesh.tp_rank * per, (sc.mesh.tp_rank + 1) * per)
 
 
-def tp_plan(cfg, mesh) -> Dict[str, bool]:
+def tp_plan(cfg, mesh) -> Dict[str, Any]:
     """Which of the model's tp-mapped logical dims split over this mesh
     (:func:`spec_for` on the config's sizes): 'heads', 'kv_heads',
     'mlp', 'vocab'. A tp mesh of one rank keeps all four (1 divides
     everything), so its forward issues the same collectives as a wider
-    one. Raises ``ValueError`` for a layout the local-shard forward
-    cannot run: q heads split while more than one KV head is replicated
-    (each rank's q heads would need a subset of the replicated heads)."""
+    one. 'kv_groups' is this rank's :func:`kv_head_layout` (None when
+    its q heads read the kv heads in a regular group)."""
     sizes = {'heads': cfg.n_heads, 'kv_heads': cfg.n_kv_heads,
              'mlp': cfg.ffn_dim, 'vocab': cfg.vocab_size}
-    plan = {k: spec_for((k,), shape=(n,), mesh=mesh) == ('tp',)
-            for k, n in sizes.items()}
-    if plan['heads'] and not plan['kv_heads'] and cfg.n_kv_heads > 1:
-        raise ValueError(
-            f'tp={_axis_sizes(mesh)["tp"]} splits {cfg.n_heads} q heads '
-            f'but not {cfg.n_kv_heads} kv heads; replicated kv heads are '
-            'supported for n_kv_heads == 1 only')
+    plan: Dict[str, Any] = {
+        k: spec_for((k,), shape=(n,), mesh=mesh) == ('tp',)
+        for k, n in sizes.items()}
+    plan['kv_groups'] = kv_head_layout(cfg, mesh)
     return plan
+
+
+def kv_head_layout(cfg, mesh, *, tp_rank: Optional[int] = None
+                   ) -> Optional[Tuple[Tuple[int, ...], int]]:
+    """Where this rank's q heads sit among the kv heads it attends when
+    tp splits the q heads but replicates the kv heads (``n_kv_heads %
+    tp != 0``, the reference's ``spec_for`` dropping to replication):
+    ``(positions, n_virtual)``, or None when the local q heads already
+    form regular groups over the local kv heads (the kv heads split
+    too, one kv head, or no tp).
+
+    Local q head ``j`` (global ``tp_rank * hq_local + j``) reads kv head
+    ``kv = global // group``. The attention runs on a *virtual* query of
+    ``n_kv_heads * g`` heads, ``g`` the most local q heads that read one
+    kv head, with local head ``j`` at ``positions[j] = kv * g + i`` (its
+    index ``i`` among the local heads of that kv head) and zeros
+    elsewhere: a regular group ``g`` over every kv head of the
+    replicated pool, which every attention path (the plain ones and the
+    kernels) takes as it is. The aligned case (64 q / 8 kv at tp 16:
+    each rank's 4 q heads read one kv head) and the unaligned one (6 q /
+    3 kv at tp 2: rank 1's q heads 3, 4, 5 read kv heads 1, 2, 2) are the
+    same mapping. The padded heads cost compute and kv reads over every
+    kv head; their outputs are dropped."""
+    sizes = _axis_sizes(mesh)
+    t = sizes['tp']
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    if t == 1 or hq % t or hkv % t == 0 or hkv == 1:
+        return None
+    if tp_rank is None:
+        tp_rank = getattr(mesh, 'tp_rank', 0)
+    group, local = hq // hkv, hq // t
+    kv_of = [(tp_rank * local + j) // group for j in range(local)]
+    g = max(kv_of.count(k) for k in set(kv_of))
+    seen: Dict[int, int] = {}
+    positions = []
+    for kv in kv_of:
+        positions.append(kv * g + seen.get(kv, 0))
+        seen[kv] = seen.get(kv, 0) + 1
+    return tuple(positions), hkv * g
+
+
+def attend_local_heads(attn_fn, q: torch.Tensor, k: torch.Tensor,
+                       v: torch.Tensor) -> torch.Tensor:
+    """``attn_fn(q, k, v)`` for this rank's q heads ``q [b, s, hq_local,
+    d]``: as it is, unless the active plan replicates several kv heads
+    under split q heads (:func:`kv_head_layout`); then ``q`` is placed in
+    the virtual query (zeros elsewhere), attended against every kv head,
+    and this rank's heads are taken back out. The plan's 'kv_index' is
+    the positions as a device tensor, made once by the engine (a CUDA
+    graph captured later never uploads it)."""
+    sc = active()
+    layout = None if sc is None else sc.plan.get('kv_groups')
+    if layout is None:
+        return attn_fn(q, k, v)
+    n_virtual = layout[1]
+    pos = sc.plan['kv_index']
+    qv = q.new_zeros(q.shape[:2] + (n_virtual,) + q.shape[3:])
+    qv.index_copy_(2, pos, q)
+    return attn_fn(qv, k, v).index_select(2, pos)
+
+
+def attention_config(cfg, plan: Optional[Dict[str, Any]]):
+    """The geometry the attention calls of a shard see: ``cfg`` (a shard
+    config) with its q heads counted as the virtual query's under a
+    replicated kv-head layout (:func:`kv_head_layout`)."""
+    layout = None if plan is None else plan.get('kv_groups')
+    if layout is None:
+        return cfg
+    return dataclasses.replace(cfg, n_heads=layout[1],
+                               head_dim_override=cfg.head_dim)
 
 
 def shard_config(cfg, mesh):
@@ -598,11 +715,16 @@ class FollowerDied(RuntimeError):
 class ServingMesh:
     """One rank's view of the serving mesh: its rank and coordinates,
     its device, the ``DeviceMesh`` and its tp and dp process groups, and
-    (on rank 0) the follower processes and the control channel."""
+    (on rank 0) the follower processes it started and the control
+    channel. ``store_path`` is the rendezvous: a file path (a
+    ``FileStore`` on one host) or a ``tcp://host:port`` URL (rank 0
+    hosts the store; :func:`gang_mesh`). ``local_rank`` names this
+    rank's card on its host (default: ``rank``)."""
 
     def __init__(self, spec: MeshSpec, rank: int, device_type: str,
                  store_path: str, timeout_s: float, procs=(),
-                 tmpdir: Optional[str] = None):
+                 tmpdir: Optional[str] = None,
+                 local_rank: Optional[int] = None):
         import torch.distributed as dist
         from torch.distributed.device_mesh import init_device_mesh
         if spec.shape[:2] != (1, 1) or spec.fsdp != 1 or spec.sp != 1:
@@ -616,7 +738,8 @@ class ServingMesh:
         self.shape = dict(zip(MESH_AXES, spec.shape))
         c = _coords(self.shape, rank)
         self.tp_rank, self.dp_rank = c['tp'], c['dp']
-        self.device = local_rank_device(rank, device_type)
+        self.device = local_rank_device(
+            rank if local_rank is None else local_rank, device_type)
         self.timeout_s = float(timeout_s)
         self._procs = list(procs)
         self._tmpdir = tmpdir
@@ -629,7 +752,9 @@ class ServingMesh:
         timeout = datetime.timedelta(seconds=self.timeout_s)
         kw: Dict[str, Any] = dict(
             backend='nccl' if device_type == 'cuda' else 'gloo',
-            init_method=f'file://{store_path}', world_size=self.size,
+            init_method=(store_path if '://' in store_path
+                         else f'file://{store_path}'),
+            world_size=self.size,
             rank=rank, timeout=timeout)
         if device_type == 'cuda':
             torch.cuda.set_device(self.device)
@@ -809,7 +934,7 @@ class ServingMesh:
         if self.closed:
             return
         self.closed = True
-        if self.is_leader and self._procs:
+        if self.is_leader and self.size > 1:
             try:
                 if not self.broken:
                     self.send(('stop',))
@@ -927,6 +1052,113 @@ def serving_mesh(tp: int = 1, dp: int = 1, *, device='cuda',
         return None
     return make_mesh(spec, device=device, timeout_s=timeout_s,
                      store_dir=store_dir, threads=threads)
+
+
+# --------------------------------------------------------------------------
+# Multi-host bootstrap
+# --------------------------------------------------------------------------
+# Port offset from the gang bus (rank 0's HTTP front end) to the process
+# group's TCP rendezvous: the two services share a host, not a protocol.
+GANG_RENDEZVOUS_PORT_OFFSET = 1000
+
+
+def coordinator_from_url(url: str) -> str:
+    """``host:port`` of the process group's rendezvous from a gang's
+    ``SKYTPU_COORDINATOR`` HTTP URL (rank 0's model server): the same
+    host, the HTTP port + :data:`GANG_RENDEZVOUS_PORT_OFFSET`."""
+    import urllib.parse
+    parsed = urllib.parse.urlparse(url if '//' in url else f'//{url}')
+    host = parsed.hostname or 'localhost'
+    port = (parsed.port or 8081) + GANG_RENDEZVOUS_PORT_OFFSET
+    return f'{host}:{port}'
+
+
+def _backend(device) -> str:
+    """'nccl' for a CUDA device (raising when this host has none: the
+    bootstrap never falls back to the CPU), 'gloo' for the CPU."""
+    device_type = torch.device(device).type
+    if device_type == 'cuda':
+        if not torch.cuda.is_available():
+            raise RuntimeError('device=cuda but no CUDA device is '
+                               "visible (pass device='cpu' for gloo)")
+        return 'nccl'
+    if device_type != 'cpu':
+        raise ValueError(f'process group on {device!r}: use cuda or cpu')
+    return 'gloo'
+
+
+def _init_default_group(addr: str, rank: int, world: int,
+                        timeout_s: float, device) -> bool:
+    """Join the default process group at ``tcp://addr`` (idempotent:
+    True at once when one is up). A rendezvous that does not complete
+    within ``timeout_s`` or a connect failure raises."""
+    import torch.distributed as dist
+    if dist.is_initialized():
+        return True
+    dist.init_process_group(
+        backend=_backend(device), init_method=f'tcp://{addr}',
+        world_size=int(world), rank=int(rank),
+        timeout=datetime.timedelta(seconds=max(1.0, float(timeout_s))))
+    return True
+
+
+def initialize_gang_distributed(coordinator_url: str, rank: int,
+                                world: int, *,
+                                timeout_s: float = 120.0,
+                                device='cuda') -> bool:
+    """Multi-process bootstrap from the gang launch-env contract
+    (``SKYTPU_COORDINATOR``/``SKYTPU_RANK``/``SKYTPU_WORLD``): the
+    default process group over ``tcp://`` :func:`coordinator_from_url`,
+    so that one program spans every gang process. Bounded by
+    ``timeout_s`` (a member that never comes up fails the gang instead
+    of hanging it); a no-op (False) for ``world <= 1``; idempotent; a
+    failed connect raises, never swallowed (a half-joined gang would
+    serve disconnected shards)."""
+    if world <= 1:
+        return False
+    return _init_default_group(coordinator_from_url(coordinator_url), rank,
+                               world, timeout_s, device)
+
+
+def initialize_distributed_from_env(*, device='cuda',
+                                    timeout_s: float = DEFAULT_TIMEOUT_S
+                                    ) -> bool:
+    """The training twin of :func:`initialize_gang_distributed`, from
+    ``SKYTPU_COORDINATOR_ADDRESS`` (``host:port``), ``SKYTPU_NUM_NODES``
+    and ``SKYTPU_NODE_RANK``: a no-op (False) when the contract is
+    absent or names one node; idempotent; a failed connect raises."""
+    coord = os.environ.get('SKYTPU_COORDINATOR_ADDRESS')
+    n = int(os.environ.get('SKYTPU_NUM_NODES', '1') or 1)
+    if not coord or n <= 1:
+        return False
+    rank = int(os.environ.get('SKYTPU_NODE_RANK', '0') or 0)
+    return _init_default_group(coord, rank, n, timeout_s, device)
+
+
+def gang_mesh(tp: int, dp: int, *, coordinator_url: str, rank: int,
+              device='cuda', timeout_s: float = DEFAULT_TIMEOUT_S,
+              local_rank: Optional[int] = None) -> ServingMesh:
+    """This process's rank of the (tp, dp) serving mesh whose ranks a
+    launcher started (a mesh gang: ``tp * dp`` processes, on one host or
+    several), met at ``tcp://`` :func:`coordinator_from_url` (rank 0
+    hosts the store). Nothing is spawned: rank 0's mesh has no follower
+    processes of its own, and a nonzero rank runs
+    ``parallel/follower.py``'s loop on the mesh returned. The rendezvous
+    waits at most ``timeout_s`` for every rank and raises otherwise.
+    ``local_rank`` names this rank's card on its host (default: the
+    ``LOCAL_RANK`` environment variable, else ``rank``)."""
+    import torch.distributed as dist
+    device_type = torch.device(device).type
+    _backend(device)
+    if dist.is_initialized():
+        raise RuntimeError('a process group is already up in this process '
+                           '(shut the other serving mesh down first)')
+    if local_rank is None:
+        local_rank = int(os.environ.get('LOCAL_RANK', rank))
+    spec = MeshSpec.for_serving(tp=tp, dp=dp)
+    return ServingMesh(spec, rank, device_type,
+                       'tcp://' + coordinator_from_url(coordinator_url),
+                       timeout_s, local_rank=local_rank)
 
 
 # --------------------------------------------------------------------------

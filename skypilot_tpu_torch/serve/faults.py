@@ -33,9 +33,19 @@ The port's model server (``serve/server.py``) fires these sites:
   ``kv_corruption`` flips one byte (:func:`corrupt_blob`); the
   receiver's checksum refuses it.
 
-The other sites (the load balancer's, the replica manager's, the gang
-and the fleet simulator's) belong to modules that are not ported; their
-rules still validate, so one spec serves both packages.
+- ``gang_join_timeout``, once as a gang follower starts, on its own
+  rank (``serve/gang.py``). Kind ``replica_crash``: the rank never
+  joins (the leader fails the gang with cause ``join_timeout``); kind
+  ``engine_stall``: it joins ``delay_s`` late.
+- ``gang_member_crash``, once per heartbeat of a gang follower, on its
+  own rank. Kind ``replica_crash``: the rank dies (an ``InjectedFault``
+  ends its process), and the leader fails the gang with cause
+  ``heartbeat_lost``.
+
+A rule with ``rank`` set fires only on that rank's invocations. The
+other sites (the load balancer's, the replica manager's and the fleet
+simulator's) belong to modules that are not ported; their rules still
+validate, so one spec serves both packages.
 
 Disabled, the hooks cost one attribute check: the server resolves its
 injector once, and nothing under ``inference/`` refers to this module.

@@ -15,8 +15,9 @@ Routes:
 
 - ``GET /readiness``: 200 ``{"status": "ready", ...}`` once the engine
   is built and warmed; 503 while loading, after a failure, ``{"status":
-  "degraded", ...}`` after a gray failure, or ``{"status": "draining",
-  ...}`` during a drain.
+  "degraded", ...}`` after a gray failure, ``{"status": "draining",
+  ...}`` during a drain, or ``{"status": "gang_joining", ...}`` until
+  every rank of a gang joined.
 - ``POST /generate``: ``{"prompt": [ids...] | "text", "max_new_tokens":
   N, "temperature", "top_k", "top_p", "stop", "slo_tier":
   "latency"|"throughput", "request_key"}``; ``"stream": true`` answers
@@ -90,6 +91,18 @@ request's adapter loads on every rank inside the mirrored admission),
 followers propose from the same histories), ``--prefill-w8a8`` and a
 MoE model.
 
+Multi-host gangs (``serve/gang.py``; ``--gang-rank``, ``--gang-world``,
+``--gang-coordinator``, ``--gang-id``, else the ``SKYTPU_RANK``,
+``SKYTPU_WORLD``, ``SKYTPU_COORDINATOR`` and ``SKYTPU_GANG_ID`` launch
+env): rank 0 is this server with a ``GangCoordinator`` on its front end
+(``POST /gang/sync``, ``GET /gang/status``; readiness waits for the
+barrier), and ``main()`` sends every other rank to
+:func:`run_follower`. With ``tp * dp == 1`` each rank holds a whole
+model and replays rank 0's op log (the replicated plane); with ``tp *
+dp`` equal to the world the ranks form one serving mesh over TCP (the
+mesh plane). A failed rank, join or digest fails the whole gang
+(``_fatal``); drain and checkpoint wait for every rank's ack.
+
 Gray failures: a step watchdog thread degrades the replica when an
 engine step outlives ``step_watchdog_s`` (a wedged step), and so does a
 storm of ``nan_alarm_threshold`` non-finite-logits evictions. A degraded
@@ -110,7 +123,6 @@ import threading
 import time
 import urllib.error
 import urllib.parse
-import urllib.request
 from typing import Any, Callable, Dict, List, Optional, Union
 
 from skypilot_tpu_torch import telemetry
@@ -126,7 +138,9 @@ from skypilot_tpu_torch.ops import flash_attention, paged_attention
 from skypilot_tpu_torch.parallel import mesh as mesh_lib
 from skypilot_tpu_torch.serve import disagg as disagg_lib
 from skypilot_tpu_torch.serve import faults
+from skypilot_tpu_torch.serve import gang as gang_lib
 from skypilot_tpu_torch.serve import scheduler as scheduler_lib
+from skypilot_tpu_torch.serve import wire
 from skypilot_tpu_torch.telemetry import tracing
 from skypilot_tpu_torch.utils.device import DeviceLike, resolve_device
 
@@ -233,6 +247,23 @@ def build_engine(cfg: Union[str, ModelConfig, None], *, max_batch: int,
 
 
 
+def gang_plane(gang: gang_lib.GangSpec, tp: int, dp: int) -> str:
+    """The data plane of a gang (``serve/gang.py``): ``'replicated'``
+    when ``tp * dp == 1`` (every rank holds a whole model and replays
+    rank 0's op log), ``'mesh'`` when ``tp * dp`` equals the gang's
+    world (the ranks form one serving mesh over TCP). Any other world
+    raises ``ValueError``."""
+    n = tp * dp
+    if n == 1:
+        return 'replicated'
+    if n == gang.world:
+        return 'mesh'
+    raise ValueError(
+        f'gang world {gang.world} fits neither data plane: replicated '
+        f'needs tp * dp == 1 (every rank a whole model), mesh needs '
+        f'tp * dp == world; got tp={tp} x dp={dp} = {n}')
+
+
 def _finish_reason(req) -> str:
     """``stop`` when the request ended on eos or a stop sequence, else
     ``length``."""
@@ -274,6 +305,7 @@ class ModelServer:
                  watchdog_clock: Optional[Callable[[], float]] = None,
                  nan_alarm_threshold: Optional[int] = None,
                  tp: Optional[int] = None, dp: Optional[int] = None,
+                 gang: Optional[gang_lib.GangSpec] = None,
                  device: DeviceLike = 'cuda'):
         self.device = resolve_device(device)
         # The serving mesh's shape: the arguments, else SKYTPU_TP /
@@ -436,12 +468,61 @@ class ModelServer:
         self._m_kv_bytes = {d: disagg_lib.transfer_bytes_counter(d)
                             for d in disagg_lib.KV_TRANSFER_DIRECTIONS}
         self._h_kv_transfer = disagg_lib.transfer_seconds()
+        # Multi-host gang serving (serve/gang.py): the explicit spec,
+        # else the SKYTPU_COORDINATOR/SKYTPU_RANK/SKYTPU_WORLD launch
+        # env; world <= 1 (the default) leaves every hook a None check.
+        # Rank 0 hosts the GangCoordinator on this HTTP front end
+        # (/gang/sync); nonzero ranks never build a ModelServer (main()
+        # sends them to run_follower). The gang series register either
+        # way, so the /metrics schema is stable from the first scrape.
+        gang_lib.register_metrics()
+        self.gang = gang if gang is not None else \
+            gang_lib.GangSpec.from_env()
+        self.gang_plane: Optional[str] = None
+        self._gang: Optional[gang_lib.GangCoordinator] = None
+        # The op log: the coordinator of a replicated gang (a mesh
+        # gang's engine calls go over the mesh's control channel).
+        self._oplog: Optional[gang_lib.GangCoordinator] = None
+        self._gang_boot_blob: Optional[bytes] = None
+        self._gang_drain_cid: Optional[int] = None
+        if self.gang.is_gang:
+            if not self.gang.is_leader:
+                raise ValueError(
+                    'ModelServer is the rank-0 gang process; run nonzero '
+                    'ranks through the follower entry (python -m '
+                    'skypilot_tpu_torch.serve.server --gang-rank N)')
+            self.gang_plane = gang_plane(self.gang, self.mesh_spec.tp,
+                                         self.mesh_spec.dp)
+            if self.role != 'colocated':
+                logger.warning('gang serving forces role=colocated (was '
+                               '%s): a handoff into or out of a gang '
+                               'would desync the followers', self.role)
+                self.role = 'colocated'
+            self._gang = gang_lib.GangCoordinator(self.gang)
+            if self.gang_plane == 'replicated':
+                self._oplog = self._gang
+                # Every admission and cancel the scheduler performs is
+                # recorded (under the engine lock), so the followers
+                # replay the same engine calls.
+                self.sched.on_admit = self._gang_record_admit
+                self.sched.on_cancel = self._gang_record_cancel
 
     # ------------------------------------------------------------- engine
     def _load_engine(self) -> None:
-        self.mesh = mesh_lib.serving_mesh(self.mesh_spec.tp,
-                                          self.mesh_spec.dp,
-                                          device=self.device)
+        if self.gang_plane == 'mesh':
+            # The gang's processes are the mesh's ranks, met over TCP at
+            # this server's host (the HTTP port + 1000), the rendezvous
+            # bounded by the join timeout.
+            self.mesh = mesh_lib.gang_mesh(
+                self.mesh_spec.tp, self.mesh_spec.dp,
+                coordinator_url=(self.gang.coordinator
+                                 or f'http://{self.host}:{self.port}'),
+                rank=0, device=self.device,
+                timeout_s=self.gang.join_timeout_s)
+        else:
+            self.mesh = mesh_lib.serving_mesh(self.mesh_spec.tp,
+                                              self.mesh_spec.dp,
+                                              device=self.device)
         engine = build_engine(self.cfg,
                               max_batch=self.max_batch,
                               max_seq=self.max_seq, device=self.device,
@@ -455,12 +536,19 @@ class ModelServer:
         self.engine = engine
         self.sched.bind_engine(engine)
         # Warm boot: land a checkpoint file before readiness, so the
-        # replica never serves cold when warm state exists on disk.
+        # replica never serves cold when warm state exists on disk. A
+        # replicated gang's leader defers the landing until the barrier
+        # completes and sends it through the op log, so the followers
+        # land the same entries in the same order.
         if self.checkpoint_path and os.path.exists(self.checkpoint_path):
             t0 = time.monotonic()
             try:
                 with open(self.checkpoint_path, 'rb') as f:
                     blob = f.read()
+                if self._oplog is not None:
+                    self._gang_boot_blob = blob
+                    self._ready.set()
+                    return
                 res = self.warm_from_checkpoint(blob)
                 dt = time.monotonic() - t0
                 self._h_warmup.observe(dt)
@@ -489,6 +577,9 @@ class ModelServer:
                 self._work.wait()
                 if self._stopping:
                     break
+                if (self._gang_boot_blob is not None
+                        and self._gang.all_joined):
+                    self._gang_warm_boot()
                 if self._faults is not None and self._fire_engine_step():
                     return               # an injected wedge never returns
                 if self.speculate_k and self.engine is not None:
@@ -512,6 +603,14 @@ class ModelServer:
                         sat = max(2, self.engine.max_batch // 2)
                         h = self.decode_steps_per_call or (
                             32 if self.engine.num_active >= sat else 8)
+                        if self._oplog is not None:
+                            # Recorded before it runs (op order is
+                            # execution order: the engine lock holds
+                            # both), so the followers run the same
+                            # fused horizon.
+                            self._oplog.append_op(
+                                {'k': 'step', 'h': h,
+                                 'prepared': bool(self.speculate_k)})
                         # The watchdog window is exactly the step.
                         self._wd_arm()
                         try:
@@ -520,6 +619,11 @@ class ModelServer:
                             self._wd_clear()
                         if self._nan_evict_pending:
                             events = self._inject_nan_evict(events)
+                        if self._oplog is not None and events:
+                            # The finished-request digests the
+                            # followers' are checked against; before
+                            # on_events pops the finished requests.
+                            self._oplog.digest.update(self.engine, events)
                     else:
                         events = []
                         if not self.sched.backlog:
@@ -546,9 +650,13 @@ class ModelServer:
     def _fatal(self, e: Exception) -> None:
         """The engine died: drop readiness and fail every queued and
         in-flight request, so handler threads return errors instead of
-        blocking."""
+        blocking. On a gang leader this fails the whole gang too: every
+        follower's next sync gets the error and ends itself (one dead
+        rank, dead gang; never a half-alive replica)."""
         logger.exception('Engine loop died: %s: %s', type(e).__name__, e)
         self._error = f'{type(e).__name__}: {e}'
+        if self._gang is not None:
+            self._gang.fail(self._error)
         self._ready.clear()
         self.sched.fail_all(self._error)
 
@@ -591,6 +699,10 @@ class ModelServer:
             return events
         self._nan_evict_pending = False
         rid = rids[0]
+        if self._oplog is not None:
+            # The followers drop the same slot at the same log position.
+            self._oplog.append_op({'k': 'cancel', 'rid': rid})
+            self._oplog.digest.drop(rid)
         self.engine.cancel(rid)
         self.engine.nan_evictions += 1
         logger.warning('injected nan_logits: evicting request %s', rid)
@@ -829,15 +941,14 @@ class ModelServer:
                     blob = faults.corrupt_blob(blob, rule)
                     logger.warning('injected kv_corruption on the handoff '
                                    'wire (1 byte flipped)')
-            headers = {'Content-Type': 'application/octet-stream',
-                       'X-SLO-Tier': sr.tier}
-            if sr.trace_ctx and sr.trace_ctx.get('trace_id'):
-                # The decode worker's continuation joins this request's
-                # trace, with the prefill span as its causal parent.
-                headers[tracing.TRACE_HEADER] = tracing.format_trace_header(
-                    sr.trace_ctx['trace_id'], 'prefill')
-            resp = urllib.request.urlopen(urllib.request.Request(
-                target + '/kv/ingest', data=blob, headers=headers),
+            # The decode worker's continuation joins this request's
+            # trace, with the prefill span as its causal parent.
+            resp = wire.urlopen(
+                target + '/kv/ingest', data=blob,
+                headers={'Content-Type': 'application/octet-stream',
+                         'X-SLO-Tier': sr.tier},
+                trace={'trace_id': (sr.trace_ctx or {}).get('trace_id'),
+                       'parent_span': 'prefill'},
                 timeout=120)
         except urllib.error.HTTPError as e:
             body = e.read()
@@ -947,6 +1058,10 @@ class ModelServer:
         eng = self.engine
         if eng is not None:
             with self._lock:
+                if self._oplog is not None:
+                    # The exports below drain the pipeline: the
+                    # followers flush at the same log position.
+                    self._oplog.append_op({'k': 'flush'})
                 for rid in eng.decoding_request_ids():
                     if len(entries) >= max_entries:
                         break
@@ -958,11 +1073,24 @@ class ModelServer:
                     max_entries=max_entries)
                 events.extend(ev)
                 entries.extend(pentries)
+                if self._oplog is not None and events:
+                    self._oplog.digest.update(eng, events)
             if events:
                 # Tokens the exports drained belong to their outboxes, as
                 # step() events do.
                 self.sched.on_events(eng, events)
         blob = kv_transfer.encode_checkpoint(entries)
+        if self._gang is not None:
+            # Gang-atomic: "checkpointed" means every rank reached this
+            # state. A bounded wait; stragglers leave a leader-only
+            # checkpoint with a loud log, never a hang.
+            cid = self._gang.command('checkpoint')
+            if not self._gang.wait_acked(
+                    cid, timeout=min(10.0,
+                                     4 * self.gang.heartbeat_timeout_s)):
+                logger.warning('gang checkpoint: not every rank acked in '
+                               'time (%s); exporting the leader\'s state',
+                               self._gang.status()['members'])
         self._m_kv_bytes['export'].inc(len(blob))
         return blob, len(entries)
 
@@ -974,7 +1102,11 @@ class ModelServer:
         if eng is None:
             return None, 0
         with self._lock:
+            if self._oplog is not None:
+                self._oplog.append_op({'k': 'flush'})
             entry, events = eng.export_prefix_entry(hash_hex)
+            if self._oplog is not None and events:
+                self._oplog.digest.update(eng, events)
         if events:
             self.sched.on_events(eng, events)
         if entry is None:
@@ -994,6 +1126,15 @@ class ModelServer:
         with self._lock:
             if self.engine is None:
                 raise RuntimeError('engine not loaded')
+            if self._oplog is not None:
+                # Through the op log (under the engine lock), so every
+                # rank's prefix cache warms with the same entries: a
+                # warm leader over cold followers would diverge on later
+                # prefix hits.
+                import base64
+                self._oplog.append_op({
+                    'k': 'warmup',
+                    'blob': base64.b64encode(blob).decode()})
             for entry in entries:
                 try:
                     rows = self.engine.warm_prefix(entry)
@@ -1042,6 +1183,13 @@ class ModelServer:
                     else self.drain_deadline_s)
                 self.sched.begin_drain()
                 self._work.set()      # wake the loop to run the tail
+                if self._gang is not None:
+                    # The command pins the current op-log index; a
+                    # follower acks once it applied everything up to
+                    # it, so "gang drained" means every rank drained.
+                    self._gang_drain_cid = self._gang.command(
+                        'drain', {'deadline_s': float(deadline_s)
+                                  if deadline_s else self.drain_deadline_s})
                 if self.checkpoint_path:
                     threading.Thread(target=self._persist_checkpoint,
                                      daemon=True).start()
@@ -1058,12 +1206,12 @@ class ModelServer:
         with self._drain_lock:
             started, deadline = self._drain_started, self._drain_deadline
         while time.monotonic() < deadline:
-            if self.sched.drained:
+            if self.sched.drained and self._gang_drain_acked():
                 break
             # Jittered poll.
             time.sleep(0.05 * (0.5 + random.random()))
         dur = time.monotonic() - started
-        clean = self.sched.drained
+        clean = self.sched.drained and self._gang_drain_acked()
         self._h_drain.observe(dur)
         self._drained.set()
         if clean:
@@ -1077,17 +1225,30 @@ class ModelServer:
             self.sched.fail_all('drain deadline exceeded; retry on '
                                 'another replica')
 
+    def _gang_drain_acked(self) -> bool:
+        """True once every gang rank acked the drain command (always
+        True without a gang and before a drain started)."""
+        if self._gang is None:
+            return True
+        with self._drain_lock:
+            cid = self._gang_drain_cid
+        return cid is None or self._gang.acked(cid)
+
     def drain_status(self) -> Dict[str, Any]:
         with self._drain_lock:
             started, deadline = self._drain_started, self._drain_deadline
         now = time.monotonic()
-        return {
+        out = {
             'draining': started is not None,
-            'drained': self._drained.is_set() and self.sched.drained,
+            'drained': (self._drained.is_set() and self.sched.drained
+                        and self._gang_drain_acked()),
             'inflight': self.sched.inflight,
             'deadline_remaining_s': (round(max(0.0, deadline - now), 2)
                                      if deadline is not None else None),
         }
+        if self._gang is not None:
+            out['gang_drain_acked'] = self._gang_drain_acked()
+        return out
 
     # -------------------------------------------------------- idempotency
     def lookup_request_key(self, key: Optional[str]
@@ -1212,12 +1373,71 @@ class ModelServer:
                 'pool_token_capacity': 0, 'tokens_used': 0,
                 'tokens_free': 0, 'preemptions': 0, 'kv_token_bytes': 0}
 
+    # --------------------------------------------------------------- gang
+    def _gang_record_admit(self, rid: int, sr) -> None:
+        """Scheduler admission hook (engine lock held): the exact
+        ``add_request`` call, for the followers' replay."""
+        s = sr.sampling
+        self._oplog.append_op({
+            'k': 'add', 'rid': rid, 'prompt': list(sr.prompt),
+            'max_new_tokens': sr.max_new_tokens,
+            'priority': scheduler_lib.TIERS.index(sr.tier),
+            'temperature': s.get('temperature', 0.0),
+            'top_k': s.get('top_k', 0), 'top_p': s.get('top_p', 1.0),
+            'eos_id': s.get('eos_id'), 'stop': s.get('stop'),
+            # The followers decode with the same bank row and logit mask,
+            # or their digests diverge on the first adapter token.
+            'adapter': s.get('adapter'), 'tenant': s.get('tenant'),
+            'grammar': s.get('grammar'),
+            # The followers' replay joins the same fleet trace.
+            'trace_id': (sr.trace_ctx or {}).get('trace_id')})
+
+    def _gang_record_cancel(self, rid: int) -> None:
+        self._oplog.append_op({'k': 'cancel', 'rid': rid})
+        self._oplog.digest.drop(rid)
+
+    def _gang_warm_boot(self) -> None:
+        """The deferred warm boot of a replicated gang's leader, once the
+        barrier is complete: ``warm_from_checkpoint`` sends the landing
+        through the op log, so every rank lands it in log order."""
+        blob, self._gang_boot_blob = self._gang_boot_blob, None
+        t0 = time.monotonic()
+        try:
+            res = self.warm_from_checkpoint(blob)
+            dt = time.monotonic() - t0
+            self._h_warmup.observe(dt)
+            self.warm_boot = dict(res, seconds=dt)
+        except Exception as e:  # pylint: disable=broad-except
+            logger.warning('gang warm boot failed (%s: %s); serving cold',
+                           type(e).__name__, e)
+
+    def _gang_monitor(self) -> None:
+        """The leader's gang health loop: the join deadline, follower
+        heartbeats and digest divergence. A gang failure goes through
+        ``_fatal``: the whole replica leaves rotation at once."""
+        import random
+        rng = random.Random()
+        while not self._stopping and self._error is None:
+            try:
+                self._gang.check()
+            except gang_lib.GangFailure as e:
+                self._gang.count_failure(e.cause)
+                self._gang.fail(str(e))
+                self._fatal(e)
+                return
+            except Exception:  # pylint: disable=broad-except
+                logger.exception('gang monitor error')
+            # Jittered poll.
+            time.sleep(self.gang.heartbeat_s * (0.5 + rng.random()))
+
     def gang_status(self) -> Dict[str, Any]:
-        """The reference's gang block for a replica that is not a gang
-        (the port has no gang serving yet): one process, no op log."""
-        return {'gang_id': '', 'world': 1, 'barrier': True,
-                'join_seconds': None, 'ops': 0, 'failed': self._error,
-                'members': {}}
+        """The /gang/status payload (the health block a controller
+        reads): the same keys whether or not this replica is a gang."""
+        if self._gang is None:
+            return {'gang_id': self.gang.gang_id, 'world': 1,
+                    'barrier': True, 'join_seconds': None, 'ops': 0,
+                    'failed': self._error, 'members': {}}
+        return self._gang.status()
 
     def _lora_stats(self) -> Dict[str, Any]:
         """The JSON ``lora`` block: the registry's stats, or the same keys
@@ -1427,12 +1647,20 @@ class ModelServer:
                         # Out of rotation while the tail finishes.
                         self._json(503, dict(server.drain_status(),
                                              status='draining'))
+                    elif (server._gang is not None
+                          and not server._gang.all_joined):
+                        # The gang barrier gates readiness: a partial
+                        # gang never enters rotation.
+                        self._json(503, dict(server.gang_status(),
+                                             status='gang_joining'))
                     elif server._ready.is_set():
                         self._json(200, {'status': 'ready',
                                          'model': server.cfg_name,
                                          'gang': server.gang_status()})
                     else:
                         self._json(503, {'status': 'loading'})
+                elif parsed.path == '/gang/status':
+                    self._json(200, server.gang_status())
                 elif parsed.path == '/drain':
                     self._json(200, server.drain_status())
                 elif parsed.path == '/metrics':
@@ -1927,12 +2155,41 @@ class ModelServer:
                     self._json(503, {'error': {'message': str(e)}},
                                extra_headers={'Retry-After': '5'})
 
+            def _gang_sync(self) -> None:
+                """One follower heartbeat on the leader's gang bus:
+                registers or refreshes the member, checks its digests,
+                answers with the op-log tail and the pending commands
+                (404 when this replica leads no gang)."""
+                if server._gang is None:
+                    self._json(404, {'error': 'not a gang leader'})
+                    return
+                try:
+                    payload = json.loads(self._body())
+                    rank = int(payload['rank'])
+                except (KeyError, ValueError, TypeError) as e:
+                    self._json(400, {'error': f'{type(e).__name__}: {e}'})
+                    return
+                gid = payload.get('gang_id')
+                if gid and server.gang.gang_id and \
+                        gid != server.gang.gang_id:
+                    self._json(409, {'failed': f'gang id mismatch: '
+                                               f'{gid!r} != '
+                                               f'{server.gang.gang_id!r}'})
+                    return
+                self._json(200, server._gang.sync(
+                    rank, int(payload.get('applied', 0)),
+                    payload.get('acks') or [],
+                    payload.get('finished') or {}))
+
             def do_POST(self):  # noqa: N802
                 routes = ('/generate', '/v1/completions',
                           '/v1/chat/completions', '/drain', '/kv/ingest',
-                          '/checkpoint', '/kv/warmup')
+                          '/checkpoint', '/kv/warmup', '/gang/sync')
                 if self.path not in routes:
                     self._json(404, {'error': f'no route {self.path}'})
+                    return
+                if self.path == '/gang/sync':
+                    self._gang_sync()
                     return
                 if self.path == '/drain':
                     try:
@@ -1954,6 +2211,15 @@ class ModelServer:
                 if not server._ready.is_set():
                     self._json(503, {'status': 'loading'},
                                extra_headers={'Retry-After': '5'})
+                    return
+                if self.path == '/kv/ingest' and server._gang is not None:
+                    # A gang cannot adopt foreign KV: the seat would
+                    # bypass the followers. Retryable elsewhere.
+                    self._json(503, {'error': {
+                        'message': 'gang replicas do not accept KV '
+                                   'handoffs',
+                        'type': 'gang', 'retry_after_s': 5}},
+                        extra_headers={'Retry-After': '5'})
                     return
                 kv_routes = {'/kv/ingest': self._kv_ingest,
                              '/checkpoint': self._checkpoint,
@@ -2027,6 +2293,8 @@ class ModelServer:
         self._engine_thread = threading.Thread(target=self._engine_loop,
                                                daemon=True)
         self._engine_thread.start()
+        if self._gang is not None:
+            threading.Thread(target=self._gang_monitor, daemon=True).start()
         if self.step_watchdog_s > 0:
             self._wd_thread = threading.Thread(target=self._watchdog_loop,
                                                daemon=True)
@@ -2054,6 +2322,13 @@ class ModelServer:
         """Shut down the HTTP front end, the engine loop and the
         watchdog, and drop the engine (its weights and pool)."""
         self._stopping = True
+        if self._gang is not None:
+            # The followers get the shutdown command (or, missing it,
+            # lose the coordinator and end themselves): nobody outlives
+            # the gang. A bounded grace for the acks.
+            cid = self._gang.command('shutdown')
+            self._gang.wait_acked(cid,
+                                  timeout=min(1.0, 2 * self.gang.heartbeat_s))
         self._work.set()
         self._wd_stop.set()
         if self._httpd is not None:
@@ -2202,6 +2477,21 @@ def main() -> None:
     ap.add_argument('--dp', type=int, default=None,
                     help='data-parallel ranks of the serving mesh '
                          '(default: $SKYTPU_DP, else 1)')
+    ap.add_argument('--gang-rank', type=int, default=None,
+                    help='gang rank (0 = the leader: HTTP front end and '
+                         'scheduler; > 0 = a follower that replays the '
+                         'leader\'s op log, or a rank of its serving '
+                         'mesh). Default: $SKYTPU_RANK, else 0')
+    ap.add_argument('--gang-world', type=int, default=None,
+                    help='gang size (processes per replica; 1 = not a '
+                         'gang). Default: $SKYTPU_WORLD')
+    ap.add_argument('--gang-coordinator', default=None,
+                    help='rank 0\'s base URL (the gang bus; required on '
+                         'nonzero ranks). Default: $SKYTPU_COORDINATOR')
+    ap.add_argument('--gang-id', default=None,
+                    help='the shared gang identity (the unit of drain, '
+                         'checkpoint and teardown). Default: '
+                         '$SKYTPU_GANG_ID')
     ap.add_argument('--seed', type=int, default=0)
     ap.add_argument('--device', default='cuda')
     args = ap.parse_args()
@@ -2209,6 +2499,12 @@ def main() -> None:
         ap.error('--page-size only applies with --kv-cache paged')
     if args.kv_cache != 'paged' and args.decode_impl is not None:
         ap.error('--decode-impl only applies with --kv-cache paged')
+    gang_spec = gang_lib.GangSpec.from_env(
+        rank=args.gang_rank, world=args.gang_world,
+        coordinator=args.gang_coordinator, gang_id=args.gang_id)
+    if gang_spec.is_gang and not gang_spec.is_leader:
+        run_follower(gang_spec, args)
+        return
     ModelServer(args.model, max_batch=args.max_batch, max_seq=args.max_seq,
                 port=args.port, host=args.host, kv_cache=args.kv_cache,
                 model_path=args.model_path,
@@ -2233,8 +2529,85 @@ def main() -> None:
                 checkpoint_path=args.checkpoint_path,
                 fault_spec=args.fault_spec,
                 step_watchdog_s=args.step_watchdog_s,
-                tp=args.tp, dp=args.dp,
+                tp=args.tp, dp=args.dp, gang=gang_spec,
                 seed=args.seed, device=args.device).start(block=True)
+
+
+def _launch_counts() -> Dict[str, int]:
+    return {**paged_attention.launch_counts, **flash_attention.launch_counts}
+
+
+def run_follower(spec: gang_lib.GangSpec, args) -> None:
+    """A nonzero gang rank's whole life (``--gang-rank N``); the process
+    exits 0 after a clean shutdown and 1 when the gang died.
+
+    - Replicated plane: build the engine rank 0 builds (the same
+      ``build_engine`` recipe and warm-up, so request ids, prefix-cache
+      state and graphs align), join the coordinator and replay its op
+      log (``gang.GangFollower``).
+    - Mesh plane: heartbeat the coordinator from a thread (its commands
+      acked, its failure or loss ending this process) while this rank of
+      the serving mesh, met over TCP (``mesh.gang_mesh``, bounded by the
+      join timeout), serves rank 0's engine calls
+      (``parallel/follower.py``)."""
+    import sys
+    from skypilot_tpu_torch.parallel import follower as follower_lib
+    mesh_spec = mesh_lib.serving_spec_from_env(tp=args.tp, dp=args.dp)
+    plane = gang_plane(spec, mesh_spec.tp, mesh_spec.dp)
+    injector = faults.make_injector(args.fault_spec)
+    logger.info('gang follower rank %d/%d (gang %s, %s plane)', spec.rank,
+                spec.world, spec.gang_id or '?', plane)
+    if plane == 'replicated':
+        engine = build_engine(
+            None if args.model_path else args.model,
+            max_batch=args.max_batch, max_seq=args.max_seq,
+            model_path=args.model_path, seed=args.seed,
+            kv_cache=args.kv_cache, page_size=args.page_size,
+            quantize=args.quantize, kv_cache_dtype=args.kv_cache_dtype,
+            decode_impl=args.decode_impl,
+            prefill_chunk_tokens=args.prefill_chunk_tokens,
+            prefill_w8a8=args.prefill_w8a8,
+            decode_priority_ratio=args.decode_priority_ratio,
+            decode_steps_per_call=args.decode_steps_per_call,
+            speculate_k=args.speculate_k,
+            adapter_slots=args.adapter_slots, adapter_dir=args.adapter_dir,
+            adapter_rank=args.adapter_rank, device=args.device)
+        before = _launch_counts()
+        follower = gang_lib.GangFollower(spec, engine, faults=injector)
+        cause = follower.run()
+        logger.info('gang follower rank %d exiting: %s', spec.rank, cause)
+        # One JSON line for the launcher: the exit cause, the ops
+        # replayed, the kernel launches of the replay (the warm-up's
+        # excluded) and the digest of every finished request.
+        after = _launch_counts()
+        print(json.dumps({'gang_follower': {
+            'rank': spec.rank, 'exit': cause,
+            'ops_applied': follower.ops_applied,
+            'launches': {k: n - before.get(k, 0) for k, n in after.items()
+                         if n != before.get(k, 0)},
+            'finished': {str(r): d
+                         for r, d in follower.digest.finished.items()}}}),
+              flush=True)
+        sys.exit(0 if cause in ('shutdown', 'stopped') else 1)
+    follower = gang_lib.GangFollower(spec, None, faults=injector)
+
+    def heartbeat() -> None:
+        try:
+            cause = follower.run()
+        except BaseException as e:  # noqa: BLE001 - the rank dies below
+            cause = f'{type(e).__name__}: {e}'
+        if cause not in ('shutdown', 'stopped'):
+            logger.warning('gang follower rank %d: %s; ending the process',
+                           spec.rank, cause)
+            os._exit(1)
+
+    threading.Thread(target=heartbeat, daemon=True).start()
+    mesh = mesh_lib.gang_mesh(mesh_spec.tp, mesh_spec.dp,
+                              coordinator_url=spec.coordinator,
+                              rank=spec.rank, device=args.device,
+                              timeout_s=spec.join_timeout_s)
+    follower_lib.serve(mesh)
+    sys.exit(0)
 
 
 if __name__ == '__main__':

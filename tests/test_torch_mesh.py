@@ -131,23 +131,31 @@ def test_meshless_defaults_and_device_checks():
 
 
 def test_tp_plan_and_shard_config():
-    """Which dims split, the local config, and the one layout the
-    local-shard forward refuses (q heads split over several replicated
-    kv heads)."""
+    """Which dims split, the local config, and the layout of q heads
+    split over several replicated kv heads (``kv_groups``: each rank's q
+    heads placed in a virtual query over every kv head)."""
     tiny = configs.TINY                                 # 4 q, 2 kv heads
     two = mesh_lib.MeshSpec.for_serving(tp=2)
     assert mesh_lib.tp_plan(tiny, two) == dict(heads=True, kv_heads=True,
-                                               mlp=True, vocab=True)
+                                               mlp=True, vocab=True,
+                                               kv_groups=None)
     local = mesh_lib.shard_config(tiny, two)
     assert (local.n_heads, local.n_kv_heads, local.ffn_dim,
             local.head_dim, local.vocab_size) == (2, 1, 64, 16, 256)
     mqa = dataclasses.replace(tiny, n_kv_heads=1)
     assert mesh_lib.tp_plan(mqa, two)['kv_heads'] is False
     assert mesh_lib.shard_config(mqa, two).n_kv_heads == 1
+    assert mesh_lib.tp_plan(mqa, two)['kv_groups'] is None
     one = mesh_lib.MeshSpec.for_serving(tp=1)
-    assert all(mesh_lib.tp_plan(tiny, one).values())
-    with pytest.raises(ValueError, match='kv heads'):
-        mesh_lib.tp_plan(tiny, mesh_lib.MeshSpec.for_serving(tp=4))
+    plan1 = mesh_lib.tp_plan(tiny, one)
+    assert all(plan1[k] for k in ('heads', 'kv_heads', 'mlp', 'vocab'))
+    four = mesh_lib.MeshSpec.for_serving(tp=4)
+    plan4 = mesh_lib.tp_plan(tiny, four)
+    assert plan4['heads'] and not plan4['kv_heads']
+    assert plan4['kv_groups'] == ((0,), 2)              # rank 0: kv 0
+    assert mesh_lib.kv_head_layout(tiny, four, tp_rank=3) == ((1,), 2)
+    local4 = mesh_lib.shard_config(tiny, four)
+    assert (local4.n_heads, local4.n_kv_heads) == (1, 2)
 
 
 def _put_back(shards, full):

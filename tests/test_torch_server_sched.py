@@ -64,9 +64,8 @@ PORT_ONLY_KEYS = {'kv_cache', 'decode_impl', 'decode_kernel_launches',
                   'prefill_kernel_launches', 'prefill_calls',
                   'decode_substeps', 'decode_calls', 'graph_captures',
                   'graph_replays', 'graph_capture_s', 'device'}
-# Prometheus families of reference modules not ported yet: gang serving
-# (serve/gang.py).
-UNPORTED_FAMILIES = {
+# The gang series (serve/gang.py) register on every server, gang or not.
+GANG_FAMILIES = {
     'skytpu_gang_size', 'skytpu_gang_join_seconds',
     'skytpu_gang_failures_total', 'skytpu_gang_heartbeat_age_seconds'}
 
@@ -235,8 +234,7 @@ def test_prometheus_families_and_labels_equal(pair):
         'text/plain; version=0.0.4; charset=utf-8'
     j = _families(jbody.decode())
     t = _families(tbody.decode())
-    assert UNPORTED_FAMILIES <= set(j)
-    j = {k: v for k, v in j.items() if k not in UNPORTED_FAMILIES}
+    assert GANG_FAMILIES <= set(j)
     assert set(t) == set(j)
     for name in j:
         assert t[name] == j[name], name

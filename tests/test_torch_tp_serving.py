@@ -15,8 +15,8 @@ its own streams, and to the reference's meshless ones at fp32).
 - per-shard KV counts equal to the reference's;
 - a KV handoff exported at tp = 2 lands at tp = 1 and the reverse, and
   the streams continue as the exporting engine's own;
-- the layout that still waits (several replicated kv heads) raises
-  ``ValueError``.
+- several replicated kv heads (6 q / 3 kv at tp = 2) serve on both
+  engines, equal to the meshless and the reference's streams.
 
 The mesh is one module fixture: a ``FileStore`` under ``tmp_path``, a
 60 s process-group timeout (a hang fails the test instead of eating the
@@ -270,21 +270,32 @@ def test_kv_handoff_crosses_tp(mesh, tiny, direction, kv):
     sharded.close()
 
 
-def test_options_that_wait_raise_under_a_mesh(mesh):
-    """The one layout still waiting under a mesh (ROADMAP §1 item 2a):
-    q heads split over tp while several kv heads replicate (6 q heads
-    and 3 kv heads at tp = 2). Both engines refuse it with
-    ``ValueError`` on every rank alike, and the mesh serves on. The
-    bank, MoE, speculation and W8A8 prefill run under a mesh now
-    (``tests/test_torch_mesh_options.py``)."""
-    cfg = dataclasses.replace(TCFG, n_heads=6, n_kv_heads=3,
-                              head_dim_override=16)
-    for cls in (PagedInferenceEngine, InferenceEngine):
-        with pytest.raises(ValueError, match='replicated kv heads'):
-            cls(cfg, max_batch=2, max_seq=64, device='cpu', mesh=mesh)
-    _, eng = _run(PagedInferenceEngine, TCFG, None, gen=2,
-                  prompts=([1, 2, 3],), mesh=mesh)
+@pytest.mark.parametrize('engine', ['paged', 'slot'])
+def test_options_that_wait_raise_under_a_mesh(mesh, engine):
+    """The layout that used to wait under a mesh (ROADMAP §1 item 2a)
+    now serves: q heads split over tp while several kv heads replicate
+    (6 q heads and 3 kv heads at tp = 2, the unaligned case: rank 1's q
+    heads 3, 4, 5 read kv heads 1, 2, 2). Every rank keeps the whole kv
+    heads (one kv shard) and attends through ``mesh.kv_head_layout``'s
+    virtual query; the fp32 streams equal the meshless engine's and the
+    reference's. The bank, MoE, speculation and W8A8 prefill run under a
+    mesh too (``tests/test_torch_mesh_options.py``)."""
+    jcfg = dataclasses.replace(JCFG, n_heads=6, n_kv_heads=3,
+                               head_dim_override=16)
+    tcfg = dataclasses.replace(TCFG, n_heads=6, n_kv_heads=3,
+                               head_dim_override=16)
+    jp, tp = _ref_params(jcfg, tcfg)
+    cls, jcls = ((PagedInferenceEngine, JPaged) if engine == 'paged'
+                 else (InferenceEngine, JSlot))
+    want, _ = _jrun(jcls, jcfg, jp)
+    meshless, _ = _run(cls, tcfg, tp)
+    got, eng = _run(cls, tcfg, tp, mesh=mesh)
+    assert eng.shard_cfg.n_kv_heads == 3 and eng.shard_cfg.n_heads == 3
+    assert eng.kv_pool_stats()['kv_shards'] == 1
+    assert eng._tp_plan['kv_groups'] == ((0, 1, 2), 6)    # rank 0
     eng.close()
+    assert meshless == want
+    assert got == meshless
 
 
 def test_tp2_from_a_checkpoint_directory(mesh, tmp_path):
