@@ -234,15 +234,16 @@ Phases, one JSON line each; any failure exits non-zero:
    serve_mesh1_opts — the serving options on the same one-rank NCCL
    mesh, each case on the weights already on the card and held bit for
    bit against a meshless engine with the same params and options (4
-   of serve's prompts x 16 new tokens): 'bank' (llama2-7b bf16, paged,
-   K1, a bank of two adapters, two base rows) and 'spec_slot' (the slot
+   of serve's prompts x 16 new tokens): 'bank' (llama2-7b bf16 at 8 of
+   32 layers, ``reduced``, paged, K1, a bank of two adapters, two base
+   rows) and 'spec_slot' (the slot
    engine at speculate_k 4: K3 at sq 5 once a layer a round, the
    rounds' commits and accepted counts the meshless engine's) after
-   serve_mesh1; 'w8a8' (serve_int8's weights with prefill_w8a8, K1
-   int8, the int8 GEMM; one prefill's logits equal and its census with
-   a MAX all-reduce before each row-parallel product) after w8a8_slot;
-   'moe' (mixtral-8x7b int8 at serve_moe's depth, K1 int8) after
-   serve_moe. Each line carries the census of the last replayed decode
+   serve_mesh1; 'w8a8' (serve_int8's weights at 8 of 32 layers,
+   ``reduced``, with prefill_w8a8, K1 int8, the int8 GEMM; one
+   prefill's logits equal and its census with a MAX all-reduce before
+   each row-parallel product) after w8a8_slot; 'moe' (mixtral-8x7b
+   int8 at 4 of 32 layers, ``reduced``, K1 int8) after serve_moe. Each line carries the census of the last replayed decode
    step and merge (or verify round) beside ``audit.expected_census``,
    its launches and the card label; ``serving_mesh(tp=2)`` must still
    raise on one card.
@@ -280,7 +281,28 @@ Phases, one JSON line each; any failure exits non-zero:
     of the bf16 peak, peak memory, the share of the step in K4 + K5.
 11. train_reference — a small fp32 model (head_dim 64) trained 3 steps
     on the card (K4, K5a, K5b) and on the CPU (plain paths) from the
-    same params: losses and grad norms agree.
+    same params: losses and grad norms agree. train_mesh1 — the training
+    mesh's step (``Trainer(mesh=make_mesh(MeshSpec()))``: a one-rank
+    NCCL mesh, so every collective of the sharded step is a copy, the
+    vocab-parallel cross-entropy and the global-norm clip) on llama3-1b
+    at full width, bf16, depth cut to 4 of 16 (``reduced``), 2 steps
+    beside the same steps meshless on the same batch: loss and grad norm
+    of step 1 within 1e-5, later steps within 2e-3, the params' rms
+    difference within 0.1 of the meshless update's rms (the largest
+    difference and its count stated); K4 twice and K5a/K5b once a layer a
+    step; the collective census. seq_parallel — ring attention (zigzag
+    and contiguous, causal) and Ulysses at sp 4 through the lock-step
+    runner (every rank's blocks in this process) at llama3-8b's widths
+    (32/8 heads, d 128, bf16) over a whole sequence of 8192 (2048 a
+    rank): outputs against K4 over the whole sequence and the plain
+    version, q/k/v gradients against the whole sequence's K5a/K5b (each
+    error read as the difference's rms over the tensor's and as the
+    worst token's max over that token's rms, limits about three times
+    the readings), K4
+    (and K5a/K5b, the block backward) launches equal to the count
+    ``ring_block_calls`` predicts. Both lines say what one card cannot
+    show: several ranks, NCCL collective times, fsdp/tp/sp/pp across
+    cards, pipeline bubbles.
 12. serve_ckpt — gemma-2b (2.51B parameters: tied, sqrt(dim)-scaled
     embeddings, x * (1 + w) norms, GeGLU, 8/1 heads at d 256) written
     at full width, depth cut to 9 of 18 layers (``reduced``), by the
@@ -329,12 +351,14 @@ Phases, one JSON line each; any failure exits non-zero:
 20. lora_train — LoRA fine-tuning of llama3-8b at full width and depth
     (32 layers, dim 4096, 32/8 heads, d 128, vocab 128256): a bf16 base
     from the seed, rank-16 adapters (alpha 32) on q, k, v and o, remat
-    'block', 10 steps of ``Trainer.fit`` on one repeated 2 x 2048 batch:
+    'block', 6 steps (10 before a cut for time) of ``Trainer.fit`` on one
+    repeated 2 x 2048 batch:
     every base leaf bit for bit its copy from before training (in pinned
     host memory, compared as bytes), every ``b`` factor moved, the loss falling; step
     time, tok/s, ``mfu``, peak memory, K4/K5a/K5b launches a step,
     adapter and optimizer bytes. lora_remat — the same model under
-    'block', 'attn' and 'dots', 5 steps each: peak memory, step time,
+    'block', 'attn' and 'dots', 2 steps each (5 before cuts for time):
+    peak memory, step time,
     K4 launches a step (L under 'attn', 2L otherwise); at depth 2
     (``reduced``) one ``value_and_grad`` under each policy equals
     'none' bit for bit. lora_serve — the trained adapter written by
@@ -365,7 +389,8 @@ for K6, ``kv_handoff``, ``kv_handoff_slot`` and ``kv_checkpoint``, and
 ``disagg_relay``, ``serve_lora`` and ``serve_lora_slot``, and
 ``lora_train``, ``lora_remat`` and ``lora_serve``, ``serve_w8a8``,
 ``w8a8_slot``, ``fault_watchdog``, ``serve_mesh1``,
-``serve_mesh1_opts`` and ``serve_gang``, rank 0's and rank 1's),
+``serve_mesh1_opts`` and ``serve_gang``, rank 0's and rank 1's,
+``train_mesh1`` and ``seq_parallel``),
 with the counts set to 0 just before each; ``launches_by_path`` splits a kernel's count by
 phase. The time limit cut ``kv_handoff``, ``kv_checkpoint``,
 ``sched_drain``, ``disagg_relay``, ``serve_sched_slot``, ``serve_spec``,
@@ -373,8 +398,9 @@ phase. The time limit cut ``kv_handoff``, ``kv_checkpoint``,
 part to CUT_LAYERS (8) of llama2-7b's 32 layers (``reduced`` on their
 lines), serve_moe to 8 of 32 and serve_int4 to 20 of 80
 (BIG_SERVE_LAYERS); qwen2-7b's checkpoint is written by a child process
-while the gemma-2b checkpoint phases run. Launches made to compare or
-time a kernel do not count.
+while the gemma-2b checkpoint phases run; ``serve_lora_slot`` runs no
+bankless baseline (``serve_slot`` holds the slot engine without a
+bank). Launches made to compare or time a kernel do not count.
 Phases 12-15 report their own launches on their own lines.
 K4's count adds its paths (slot prefill and every training phase).
 
@@ -3276,6 +3302,23 @@ def _gang_crash_check(torch):
 
 MESH_OPTS_REQUESTS = 4        # serve_mesh1_opts: the first 4 prompts of
 MESH_OPTS_NEW = 16            # serve's, 16 new tokens each
+# The depth of serve_mesh1_opts' 'bank', 'w8a8' and 'moe' cases, cut for
+# time (their lines' ``reduced``).
+MESH_OPTS_LAYERS = {'bank': CUT_LAYERS, 'w8a8': CUT_LAYERS, 'moe': 4}
+
+
+def _first_layers(cfg, params, n, full_layers=None):
+    """``cfg`` and ``params`` cut to their first ``n`` layers (views of
+    the stacked leaves, quantized ones too: nothing is copied), and the
+    ``reduced`` record of the cut from ``full_layers`` (default: the
+    config's depth)."""
+    import dataclasses
+    from skypilot_tpu_torch.models import llama
+    layers = llama._select_layers(params['layers'], lambda t: t[:n])
+    return (dataclasses.replace(cfg, n_layers=n),
+            dict(params, layers=layers),
+            {'n_layers': [full_layers or cfg.n_layers, n],
+             'why': "chip_smoke.py's time limit"})
 
 
 def _mesh_opts_case(torch, case, cfg, params, reqs, *, kind='paged',
@@ -3399,17 +3442,19 @@ def phase_serve_mesh1_opts(torch, seed, case, params, cfg=None,
     against a meshless engine with the same params and options
     (``_mesh_opts_case``):
 
-    - 'bank': llama2-7b bf16, paged, K1, a bank of two adapters with two
-      base rows among the requests;
+    - 'bank': llama2-7b bf16 at depth ``MESH_OPTS_LAYERS['bank']``
+      (``reduced``), paged, K1, a bank of two adapters with two base
+      rows among the requests;
     - 'spec_slot': the slot engine with ``speculate_k=SPEC_K`` on the
       spec prompts: K3 at sq = k + 1 once a layer a round, and the
       rounds' commits and accepted counts equal the meshless engine's;
-    - 'w8a8': the int8 weights of ``serve_int8`` with ``prefill_w8a8``,
-      paged, K1 int8: the int8 GEMM runs, and one prefill's logits and
-      census (a MAX all-reduce before each row-parallel product) are
-      checked too;
-    - 'moe': mixtral-8x7b int8 at full width and serve_moe's depth
-      (``reduced``), paged, K1 int8.
+    - 'w8a8': the int8 weights of ``serve_int8`` with ``prefill_w8a8``
+      at depth ``MESH_OPTS_LAYERS['w8a8']`` (``reduced``), paged, K1
+      int8: the int8 GEMM runs, and one prefill's logits and census (a
+      MAX all-reduce before each row-parallel product) are checked too;
+    - 'moe': mixtral-8x7b int8 at full width, depth
+      ``MESH_OPTS_LAYERS['moe']`` (``reduced``; the first layers of
+      serve_moe's weights), paged, K1 int8.
 
     ``serving_mesh(tp=2)`` must still raise on one card. Returns the
     case's launches of its path kernel: K1 for the paged cases, K3 (and
@@ -3427,6 +3472,8 @@ def phase_serve_mesh1_opts(torch, seed, case, params, cfg=None,
     cfg = cfg or configs.LLAMA2_7B
     prompts = _prompts(seed, cfg.vocab_size)[:MESH_OPTS_REQUESTS]
     if case == 'bank':
+        cfg, params, cut = _first_layers(cfg, params,
+                                         MESH_OPTS_LAYERS['bank'])
         trees = {f'm{i}': _lora_tree(cfg, seed * 1000 + 50 + i)
                  for i in range(2)}
         reqs = [(p, {'adapter': 'm0'} if i == 0 else
@@ -3435,7 +3482,7 @@ def phase_serve_mesh1_opts(torch, seed, case, params, cfg=None,
         line = _mesh_opts_case(
             torch, case, cfg, params, reqs, adapters=trees,
             extra=dict(extra, weights='bfloat16', adapter_rows=2,
-                       base_rows=2),
+                       base_rows=2, reduced=cut),
             adapter_slots=2, adapter_rank=LORA_RANK)
         k1 = line['kernel_launches'].get('paged_decode_attention[bf16]', 0)
         require(k1 > 0, 'serve_mesh1_opts[bank]: K1 never launched')
@@ -3459,17 +3506,23 @@ def phase_serve_mesh1_opts(torch, seed, case, params, cfg=None,
                 'flash_fwd': line['kernel_launches'].get('flash_fwd', 0)}
     if case == 'w8a8':
         import numpy as np
+        cfg, params, cut = _first_layers(cfg, params,
+                                         MESH_OPTS_LAYERS['w8a8'])
         tokens = np.asarray(prompts[0][:64], np.int32)[None]
         line = _mesh_opts_case(
             torch, case, cfg, params, [(p, {}) for p in prompts],
             prefill_tokens=tokens,
-            extra=dict(extra, weights='int8'), prefill_w8a8=True)
+            extra=dict(extra, weights='int8', reduced=cut),
+            prefill_w8a8=True)
         k1 = line['kernel_launches'].get('paged_decode_attention[int8]', 0)
         require(k1 > 0 and line['int_mm_launches'] > 0,
                 f'serve_mesh1_opts[w8a8]: K1 {k1}, int8 GEMMs '
                 f'{line["int_mm_launches"]}')
         return {'paged_decode_attention[int8]': k1}
     if case == 'moe':
+        cfg, params, reduced = _first_layers(
+            cfg, params, MESH_OPTS_LAYERS['moe'],
+            full_layers=(reduced or {}).get('n_layers', [None])[0])
         line = _mesh_opts_case(
             torch, case, cfg, params, [(p, {}) for p in prompts],
             extra=dict(extra, weights='int8',
@@ -3823,10 +3876,11 @@ SCHED_TP = (16, (512, 1024), 128)     # throughput tier: n, prompt lens, new
 SCHED_LAT = (8, (32, 64), 16)         # latency tier: n, prompt lens, new
 SCHED_LAT_GAP_S = 0.25                # latency arrivals, one each 0.25 s
 SCHED_LAT_START_S = 0.5               # ... after the throughput backlog
-SHED_BOUND = 2048                     # sched_shed's max_queue_tokens
-SHED_FLOOD = 28                       # sched_shed's requests, all at once
+SHED_BOUND = 1024                     # sched_shed's max_queue_tokens
+SHED_FLOOD = 20                       # sched_shed's requests, all at once:
+                                      # 8 run, 8 queue, 4 are refused
 SHED_REDUCED = {'max_queue_tokens': [4096, SHED_BOUND],
-                'flood': [56, SHED_FLOOD]}    # halved for the time limit
+                'flood': [56, SHED_FLOOD]}    # cut for the time limit
 SHED_PROMPT, SHED_NEW = 16, 112       # each: 128 work tokens
 DRAIN_NEW = 128                       # sched_drain's new tokens a request
 
@@ -4926,6 +4980,281 @@ def phase_train_reference(torch, seed):
     require(ok, f'card vs CPU training differs: {errs}, launches {launched}')
 
 
+# ------------------------------------------------------- training mesh
+# train_mesh1: llama3-1b at full width, cut to TRAIN_MESH1['layers'] of
+# 16 layers for time; the same seeded batch every step.
+TRAIN_MESH1 = dict(layers=4, steps=2)
+TOL_MESH1_FIRST = 1e-5         # step 1's loss and grad norm, mesh vs
+                               # meshless, relative: the same bf16 model
+                               # and fp32 logits; only the loss's sums
+                               # differ (the vocab-parallel cross-entropy
+                               # against log_softmax)
+TOL_MESH1 = 2e-3               # later steps, relative: Adam divides each
+                               # gradient by its own size, so the first
+                               # step's last-bit differences move the
+                               # near-zero gradients' updates by up to lr
+                               # (measured 2.7e-5 loss, 6.5e-4 grad norm)
+TOL_MESH1_PARAMS = 0.1         # rms(mesh - meshless params) over
+                               # rms(meshless update): a wrong gradient
+                               # (any sign, scale or missing sum) moves
+                               # Adam's update as much as the update
+                               # itself (~1); last-bit gradient
+                               # differences flip rare bf16 roundings
+                               # (read 0.036 on an H100, 700 W)
+MULTI_CARD_UNSHOWN = ('several ranks', 'NCCL collective times',
+                      'fsdp/tp/sp/pp across cards', 'pipeline bubbles')
+
+
+def phase_train_mesh1(torch, seed):
+    """The training mesh's path on one card (``parallel/mesh.py``,
+    ``train/trainer.py``): llama3-1b at full width, bf16, remat 'block',
+    ``attn_impl='auto'`` (K4 forward, K5a/K5b backward), trained
+    TRAIN_MESH1['steps'] steps through a one-rank NCCL training mesh
+    (``make_mesh(MeshSpec())``: the sharded step with every collective
+    of world 1, the vocab-parallel cross-entropy and the global-norm
+    clip), and the same steps meshless on the same batch. Returns the
+    mesh run's K4, K5a and K5b launches."""
+    import dataclasses
+    import numpy as np
+    from skypilot_tpu_torch.models import configs
+    from skypilot_tpu_torch.ops import flash_attention as fa
+    from skypilot_tpu_torch.ops import paged_attention as pa
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    from skypilot_tpu_torch.train.optim import tree_leaves
+    from skypilot_tpu_torch.train.trainer import TrainConfig, Trainer
+    from skypilot_tpu_torch.utils.device import host_scalars
+    L, steps = TRAIN_MESH1['layers'], TRAIN_MESH1['steps']
+    cfg = dataclasses.replace(configs.LLAMA3_1B, n_layers=L)
+    # No warmup: the first step already moves the params, so step 2
+    # holds the update too.
+    tc = TrainConfig(learning_rate=1e-3, warmup_steps=0, total_steps=steps,
+                     mu_dtype='float32')
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1))
+    batch = {'inputs': tokens[:, :-1].astype(np.int32),
+             'targets': tokens[:, 1:].astype(np.int32)}
+
+    def run(trainer, keep_init=False):
+        state = trainer.init(seed)
+        init = ([t.clone() for t in tree_leaves(state.params)]
+                if keep_init else None)
+        metrics, secs = [], []
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            state, m = trainer.step(state, batch)
+            metrics.append(host_scalars(m))
+            secs.append(time.monotonic() - t0)
+        return state, metrics, secs, init
+
+    _release(torch)
+    plain = Trainer(cfg, train_config=tc, device='cuda')
+    plain_state, plain_m, plain_s, init = run(plain, keep_init=True)
+    mesh = mesh_lib.make_mesh(mesh_lib.MeshSpec(), device='cuda')
+    try:
+        trainer = Trainer(cfg, mesh=mesh, train_config=tc)
+        fa.reset_launch_counts()         # counts to 0 just before the path
+        pa.reset_launch_counts()
+        mesh_lib.reset_collective_counts()
+        state, mesh_m, mesh_s, _ = run(trainer)
+        launched = dict(fa.launch_counts)
+        paged = dict(pa.launch_counts)
+        census = dict(mesh_lib.collective_counts)
+        worst, differing, total, diff_sq, update_sq = 0.0, 0, 0, 0.0, 0.0
+        for a, b, b0 in zip(tree_leaves(state.params),
+                            tree_leaves(plain_state.params), init):
+            d = (a.float() - b.float()).abs()
+            worst = max(worst, float(d.max()))
+            differing += int((d > 0).sum())
+            total += d.numel()
+            diff_sq += float(d.pow(2).sum())
+            update_sq += float((b.float() - b0.float()).pow(2).sum())
+    finally:
+        mesh.shutdown()
+    del plain, plain_state, init
+    _release(torch)
+    param_rel = math.sqrt(diff_sq / max(update_sq, 1e-30))
+
+    def rel(a, b):
+        return abs(a - b) / max(abs(b), 1e-30)
+    errs = {k: [rel(m[k], p[k]) for m, p in zip(mesh_m, plain_m)]
+            for k in ('loss', 'grad_norm')}
+    k4, k5a, k5b = (launched[k] for k in ('flash_fwd', 'flash_bwd_dkv',
+                                           'flash_bwd_dq'))
+    emit({'phase': 'train_mesh1', 'model': cfg.name, 'dtype': 'bfloat16',
+          'remat': cfg.remat, 'batch': TRAIN_BATCH, 'seq': TRAIN_SEQ,
+          'steps': steps, 'mesh': 'one-rank NCCL MeshSpec()',
+          'loss_mesh': [m['loss'] for m in mesh_m],
+          'loss_meshless': [m['loss'] for m in plain_m],
+          'grad_norm_mesh': [m['grad_norm'] for m in mesh_m],
+          'grad_norm_meshless': [m['grad_norm'] for m in plain_m],
+          'accuracy_mesh': [m['accuracy'] for m in mesh_m],
+          'rel_err': errs, 'tol_first': TOL_MESH1_FIRST,
+          'tol_later': TOL_MESH1,
+          'param_max_abs_diff': worst,
+          'params_differing': differing, 'params_total': total,
+          'param_diff_rms_over_update_rms': param_rel,
+          'tol_params': TOL_MESH1_PARAMS,
+          'param_diff_reason': (
+              'the vocab-parallel cross-entropy sums the loss in another '
+              'order than log_softmax; Adam divides each gradient by its '
+              'own size, so near-zero gradients move by up to lr'),
+          'step_s_mesh': mesh_s, 'step_s_meshless': plain_s,
+          'kernel_launches': launched, 'collectives': census,
+          'reduced': {'n_layers': f'{L} of {configs.LLAMA3_1B.n_layers}'},
+          'one_card_cannot_show': MULTI_CARD_UNSHOWN})
+    require(all(math.isfinite(m['loss']) for m in mesh_m),
+            f'mesh losses {[m["loss"] for m in mesh_m]} not finite')
+    require(errs['loss'][0] <= TOL_MESH1_FIRST
+            and errs['grad_norm'][0] <= TOL_MESH1_FIRST
+            and max(errs['loss'] + errs['grad_norm']) <= TOL_MESH1,
+            f'mesh step differs from the meshless step: {errs}')
+    require(param_rel <= TOL_MESH1_PARAMS,
+            f'mesh params differ from the meshless params: rms of the '
+            f'difference {param_rel} of the update\'s (limit '
+            f'{TOL_MESH1_PARAMS})')
+    require(k4 == 2 * L * steps and k5a == L * steps and k5b == L * steps,
+            f'launches K4 {k4} (want {2 * L * steps}), K5a {k5a}, K5b {k5b} '
+            f'(want {L * steps} each)')
+    require(launched['flash_fwd_chunk'] == 0 and not any(paged.values()),
+            f'other kernels launched on the mesh path: {launched} {paged}')
+    require(census.get('all_gather[fsdp]', 0) > 0
+            and census.get('all_reduce_max[tp]', 0) == steps,
+            f'the mesh step issued no fsdp gather or vocab-parallel max: '
+            f'{census}')
+    return k4, k5a, k5b
+
+
+# seq_parallel: llama3-8b's attention widths over a whole sequence of
+# 8192, sp 4 (2048 a rank), through the lock-step runner on one card.
+SEQ_PAR = dict(b=1, s=8192, hq=32, hkv=8, d=128, sp=4)
+# Each error is read two ways (``_seq_err``): the rms of the difference
+# over the rms of the whole-sequence result (the tensor), and the largest
+# per-token max |difference| over that token's rms (the row: a causal
+# output's rows shrink as 1/sqrt(position), so an error confined to a
+# late block is not hidden behind the early rows' large values).
+# Each limit is about three times the reading on an H100 (700 W).
+TOL_SEQ_OUT = 4e-3             # bf16 output, tensor (read 1.2e-3-1.4e-3):
+                               # the ring merges fp32 block results and
+                               # rounds once to bf16 (2^-8), against the
+                               # whole-sequence kernel's own rounding
+TOL_SEQ_OUT_ROW = 1.5e-1       # bf16 output, worst row (read 0.045-0.050):
+                               # one or two bf16 roundings of a row's
+                               # largest element, ~4x its rms
+TOL_SEQ_GRAD = 1e-2            # bf16 gradients, tensor (read 1.7e-3-
+                               # 3.4e-3): each block's K5a/K5b result is
+                               # rounded to bf16 and autograd sums up to
+                               # 2 sp of them in bf16
+TOL_SEQ_GRAD_ROW = 3e-1        # bf16 gradients, worst row (read 0.04-0.11)
+
+
+def _seq_err(torch, got, want):
+    """``got`` against ``want`` ([b, s, h, d]): {'tensor': rms of the
+    difference over the rms of ``want``, 'row': the largest per-token
+    max |difference| over that token's rms of ``want`` (floored at 1%
+    of the tensor's rms: a causal dq's first row is 0)}."""
+    got, want = got.detach().float(), want.detach().float()
+    diff = got - want
+    rms = want.pow(2).mean().sqrt()
+    row_diff = diff.abs().flatten(2).amax(-1)
+    row_rms = want.pow(2).flatten(2).mean(-1).sqrt()
+    return {'tensor': float(diff.pow(2).mean().sqrt() / rms),
+            'row': float((row_diff / (row_rms + 1e-2 * rms)).max())}
+
+
+def phase_seq_parallel(torch, seed):
+    """Ring attention (zigzag and contiguous, causal) and Ulysses at sp
+    SEQ_PAR['sp'] through the lock-step runner (``ops/ring_attention.py``
+    ``LockstepComm``: every rank's blocks in this process, a rotation a
+    reassignment) at llama3-8b's attention widths, bf16, a whole
+    sequence of SEQ_PAR['s']. Each variant's forward is held against K4
+    over the whole sequence and against the plain version; its q, k and
+    v gradients (K5a/K5b per block, the lse cotangent folded into delta)
+    against the whole sequence's K5a/K5b. K4's launches are held to the
+    count ``ring_block_calls`` predicts. Returns the K4, K5a and K5b
+    launches of the three variants together."""
+    from skypilot_tpu_torch.ops import flash_attention as fa
+    from skypilot_tpu_torch.ops import ring_attention as ring
+    from skypilot_tpu_torch.ops.ulysses import ulysses_attention
+    c = SEQ_PAR
+    sp = c['sp']
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+
+    def rnd(h):
+        return torch.randn((c['b'], c['s'], h, c['d']), generator=gen,
+                           device='cuda', dtype=torch.bfloat16)
+    q, k, v, do = rnd(c['hq']), rnd(c['hkv']), rnd(c['hkv']), rnd(c['hq'])
+    for t in (q, k, v):
+        t.requires_grad_(True)
+    whole = fa.flash_attention(q, k, v, causal=True)
+    whole_grads = torch.autograd.grad(whole, (q, k, v), do)
+    with torch.no_grad():
+        plain = fa.flash_attention_reference(q.detach(), k.detach(),
+                                             v.detach(), causal=True)[0]
+
+    def err(got, want):
+        return _seq_err(torch, got, want)
+    variants = {
+        'ring_zigzag': lambda: ring.ring_attention(
+            q, k, v, sp, causal=True, layout='zigzag'),
+        'ring_contiguous': lambda: ring.ring_attention(
+            q, k, v, sp, causal=True, layout='contiguous'),
+        'ulysses': lambda: ulysses_attention(q, k, v, sp, causal=True)}
+    predicted = {
+        'ring_zigzag': sum(ring.ring_block_calls(sp, r, 'zigzag')
+                           for r in range(sp)),
+        'ring_contiguous': sum(ring.ring_block_calls(sp, r, 'contiguous')
+                               for r in range(sp)),
+        'ulysses': sp}
+    total = {'flash_fwd': 0, 'flash_bwd_dkv': 0, 'flash_bwd_dq': 0}
+    lines = {}
+    for name, fn in variants.items():
+        torch.cuda.synchronize()
+        fa.reset_launch_counts()         # counts to 0 just before the path
+        t0 = time.monotonic()
+        out = fn()
+        torch.cuda.synchronize()
+        fwd_s = time.monotonic() - t0
+        grads = torch.autograd.grad(out, (q, k, v), do)
+        torch.cuda.synchronize()
+        secs = time.monotonic() - t0
+        got = {key: fa.launch_counts[key] for key in total}
+        for key in total:
+            total[key] += got[key]
+        lines[name] = {
+            'out_err_vs_k4_whole': err(out, whole),
+            'out_err_vs_plain': err(out, plain),
+            'grad_err_vs_k5_whole': [err(g, w) for g, w in
+                                     zip(grads, whole_grads)],
+            'launches': got, 'k4_predicted': predicted[name],
+            'fwd_s': fwd_s, 'fwd_bwd_s': secs}
+        del out, grads
+    emit({'phase': 'seq_parallel', 'sp': sp, 'batch': c['b'],
+          'seq': c['s'], 'seq_per_rank': c['s'] // sp,
+          'heads': [c['hq'], c['hkv']], 'head_dim': c['d'],
+          'dtype': 'bfloat16', 'runner': 'lock-step (one process, one card)',
+          'block_backward': 'K5a/K5b with delta - dlse',
+          'variants': lines,
+          'tol_out': {'tensor': TOL_SEQ_OUT, 'row': TOL_SEQ_OUT_ROW},
+          'tol_grad': {'tensor': TOL_SEQ_GRAD, 'row': TOL_SEQ_GRAD_ROW},
+          'one_card_cannot_show': MULTI_CARD_UNSHOWN})
+    for name, line in lines.items():
+        outs = (line['out_err_vs_k4_whole'], line['out_err_vs_plain'])
+        grads = line['grad_err_vs_k5_whole']
+        require(all(e['tensor'] <= TOL_SEQ_OUT
+                    and e['row'] <= TOL_SEQ_OUT_ROW for e in outs)
+                and all(e['tensor'] <= TOL_SEQ_GRAD
+                        and e['row'] <= TOL_SEQ_GRAD_ROW for e in grads),
+                f'{name}: {line}')
+        n = line['k4_predicted']
+        require(line['launches'] == {'flash_fwd': n, 'flash_bwd_dkv': n,
+                                     'flash_bwd_dq': n},
+                f'{name}: launches {line["launches"]}, predicted {n} each')
+    del q, k, v, do, whole, whole_grads, plain
+    _release(torch)
+    return total['flash_fwd'], total['flash_bwd_dkv'], total['flash_bwd_dq']
+
+
 # ---------------------------------------------------------------- 12-15
 CKPT_DISK_MARGIN = 4e9         # free bytes kept on the checkpoint's disk
 # Depths the synthetic checkpoints are written at (full width): half of
@@ -5661,7 +5990,8 @@ def _lora_drive(port, cfg, seed, reset, plan, late):
     return res, out['late']
 
 
-def phase_serve_lora(torch, seed, params, adapter_dir, kv_cache='paged'):
+def phase_serve_lora(torch, seed, params, adapter_dir, kv_cache='paged',
+                     baseline=True):
     """The ``serve`` requests with a bank of LORA_SLOTS slots over
     ``adapter_dir`` (five rank-LORA_RANK ``.npz`` adapters written from
     the seed): two base requests and six over three adapters (one named
@@ -5669,28 +5999,30 @@ def phase_serve_lora(torch, seed, params, adapter_dir, kv_cache='paged'):
     fourth adapter, and a late fifth-adapter request sent into the run,
     which evicts the fourth mid-run. The path's kernels: K1 once per
     layer per decode step (paged), K4/K3 once per layer per prefill call
-    (slot). Before them, the same 9 requests at the same times, all on
-    the base model, on a bankless server: TTFT and TPOT with the bank on
-    and off. Returns the launch counts."""
+    (slot). Before them (``baseline``), the same 9 requests at the same
+    times, all on the base model, on a bankless server: TTFT and TPOT
+    with the bank on and off. Returns the launch counts."""
     from skypilot_tpu_torch.models import configs, multilora
     from skypilot_tpu_torch.ops import flash_attention as fa
     from skypilot_tpu_torch.ops import paged_attention as pa
     phase = 'serve_lora' if kv_cache == 'paged' else 'serve_lora_slot'
     late = {'prompt': _prompts(seed + 1, configs.LLAMA2_7B.vocab_size)[0],
             'max_new_tokens': N_NEW}
-    srv, port = _sched_server(params, seed, kv_cache=kv_cache)
-    try:
-        # The same requests and timing, every one on the base model.
-        (_, ttfts, wall), _ = _lora_drive(port, srv.engine.cfg, seed,
-                                          lambda: None, [{}] * 8, late)
-        m = srv.metrics_json()
-        off = {'tpot_ms_median': m['tpot_ms_median'],
-               'ttft_ms_median_client': float(sorted(ttfts)[
-                   len(ttfts) // 2]), 'wall_s': wall}
-    finally:
-        srv.stop()
-    del srv
-    _release(torch)
+    off = 'not measured (reduced: no bankless baseline)'
+    if baseline:
+        srv, port = _sched_server(params, seed, kv_cache=kv_cache)
+        try:
+            # The same requests and timing, every one on the base model.
+            (_, ttfts, wall), _ = _lora_drive(port, srv.engine.cfg, seed,
+                                              lambda: None, [{}] * 8, late)
+            m = srv.metrics_json()
+            off = {'tpot_ms_median': m['tpot_ms_median'],
+                   'ttft_ms_median_client': float(sorted(ttfts)[
+                       len(ttfts) // 2]), 'wall_s': wall}
+        finally:
+            srv.stop()
+        del srv
+        _release(torch)
     torch.cuda.reset_peak_memory_stats()
     srv, port = _sched_server(params, seed, kv_cache=kv_cache,
                               adapter_slots=LORA_SLOTS,
@@ -5754,7 +6086,9 @@ def phase_serve_lora(torch, seed, params, adapter_dir, kv_cache='paged'):
             late_adapter='tenant4', lora=stats,
             bank_bytes=multilora.bank_bytes(reg.bank),
             decode_steps=steps, kernel_launches=launches,
-            bank_off=off))
+            bank_off=off,
+            reduced=(None if baseline else
+                     {'bank_off': 'no bankless baseline run'})))
     finally:
         srv.stop()
     del eng, srv, reg
@@ -5830,8 +6164,9 @@ _TIME_KEYS = ('ms', 'device_ms', 'device_ms_source', 'host_us', 'plain_ms',
 # ------------------------------------------------ LoRA fine-tuning
 LORA_TRAIN = dict(model='llama3-8b', rank=16, alpha=32.0,
                   targets=('wq', 'wk', 'wv', 'wo'), batch=2, seq=2048,
-                  steps=10, lr=1e-3)
-LORA_REMAT_STEPS = 5           # lora_remat's steps under each policy
+                  steps=6, lr=1e-3)            # 10 steps before the cut
+LORA_REMAT_STEPS = 2           # lora_remat's steps under each policy (5
+                               # before the cuts for time)
 LORA_CHECK_LAYERS = 2          # depth of the bit-for-bit and fp32 checks
 LORA_CLI = dict(batch=2, seq=1024, steps=(2, 4))         # run, then resume
 
@@ -6063,7 +6398,8 @@ def phase_lora_remat(torch, seed, params, batch):
           'seq': LORA_TRAIN['seq'], 'policies': runs,
           'grads_equal_none_bit_for_bit': equal,
           'reduced': {'n_layers': [L, LORA_CHECK_LAYERS],
-                      'what': 'the bit-for-bit gradient check only'}})
+                      'what': 'the bit-for-bit gradient check only',
+                      'steps': [5, n]}})
     require(all(equal.values()),
             f'remat policies change the gradients: {equal}')
     del sp, grads
@@ -6669,8 +7005,11 @@ def main(argv=None) -> int:
             lora_k1 = phase_serve_lora(
                 torch, args.seed, bf16_params, adapter_dir)[
                     'paged_decode_attention[bf16]']
+            # Its bankless baseline is cut for time: serve_slot
+            # and serve_sched_slot hold the slot engine without a bank.
             lora_slot = phase_serve_lora(torch, args.seed, bf16_params,
-                                         adapter_dir, kv_cache='slot')
+                                         adapter_dir, kv_cache='slot',
+                                         baseline=False)
         phase_lora_check(torch, args.seed, bf16_params)
         phase_grammar_check(torch, args.seed, bf16_params)
         fault_k1 = phase_fault_watchdog(torch, args.seed, bf16_params)
@@ -6716,6 +7055,9 @@ def main(argv=None) -> int:
         train_k4, k5a_launches, k5b_launches = phase_train(
             torch, args.seed, flash_times)
         phase_train_reference(torch, args.seed)
+        mesh1_k4, mesh1_k5a, mesh1_k5b = phase_train_mesh1(torch,
+                                                           args.seed)
+        sp_k4, sp_k5a, sp_k5b = phase_seq_parallel(torch, args.seed)
         phase_checkpoints(torch, args.seed)
         phase_moe_int4_check(torch, args.seed)
         moe_cfg, moe_cut = _big_serve_cfg('mixtral-8x7b')
@@ -6842,7 +7184,7 @@ def main(argv=None) -> int:
                                + sched_slot['flash_fwd']
                                + lora_slot['flash_fwd']
                                + lora_train[0] + lora_remat[0] + w8a8_k4
-                               + mesh_opts['flash_fwd'],
+                               + mesh_opts['flash_fwd'] + mesh1_k4 + sp_k4,
                                worst['flash_fwd'],
                                flash_times[('flash_fwd', 'served')]),
                  launches_by_path={'serve_slot': k4_launches,
@@ -6857,33 +7199,39 @@ def main(argv=None) -> int:
                                    'lora_remat': lora_remat[0],
                                    'w8a8_slot': w8a8_k4,
                                    'serve_mesh1_opts':
-                                       mesh_opts['flash_fwd']},
+                                       mesh_opts['flash_fwd'],
+                                   'train_mesh1': mesh1_k4,
+                                   'seq_parallel': sp_k4},
                  times_by_shape=_times_by_shape(
                      flash_times, 'flash_fwd',
                      ('served', 'long', 'train', '7b', '8b_train'))),
             dict(_kernel_entry('flash_bwd_dkv', 'flash_bwd.cu',
                                'flash_attention.py:284',
                                k5a_launches + moe_k5a + lora_train[1]
-                               + lora_remat[1],
+                               + lora_remat[1] + mesh1_k5a + sp_k5a,
                                worst['flash_bwd_dkv'],
                                flash_times[('flash_bwd_dkv', 'train')]),
                  launches_by_path={'train': k5a_launches,
                                    'train_moe': moe_k5a,
                                    'lora_train': lora_train[1],
-                                   'lora_remat': lora_remat[1]},
+                                   'lora_remat': lora_remat[1],
+                                   'train_mesh1': mesh1_k5a,
+                                   'seq_parallel': sp_k5a},
                  times_by_shape=_times_by_shape(
                      flash_times, 'flash_bwd_dkv',
                      ('train', '7b', '8b_train'))),
             dict(_kernel_entry('flash_bwd_dq', 'flash_bwd.cu',
                                'flash_attention.py:341',
                                k5b_launches + moe_k5b + lora_train[2]
-                               + lora_remat[2],
+                               + lora_remat[2] + mesh1_k5b + sp_k5b,
                                worst['flash_bwd_dq'],
                                flash_times[('flash_bwd_dq', 'train')]),
                  launches_by_path={'train': k5b_launches,
                                    'train_moe': moe_k5b,
                                    'lora_train': lora_train[2],
-                                   'lora_remat': lora_remat[2]},
+                                   'lora_remat': lora_remat[2],
+                                   'train_mesh1': mesh1_k5b,
+                                   'seq_parallel': sp_k5b},
                  times_by_shape=_times_by_shape(
                      flash_times, 'flash_bwd_dq',
                      ('train', '7b', '8b_train')))]})

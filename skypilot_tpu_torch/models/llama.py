@@ -162,16 +162,22 @@ def init_params(cfg: ModelConfig, seed: Union[int, torch.Generator] = 0,
                 params['layers'][k] = cut(('layers', k),
                                           params['layers'][k])
     if cfg.lora_enabled:
-        params['layers']['lora'] = lora.init_lora_layers(cfg, gen,
-                                                         device=dev)
+        adapters = lora.init_lora_layers(cfg, gen, device=dev)
+        if cut is not None:
+            adapters = {t: {k: cut(('layers', 'lora', t, k), ab[k])
+                            for k in ab} for t, ab in adapters.items()}
+        params['layers']['lora'] = adapters
     return params
 
 
 def param_logical_axes(cfg: ModelConfig) -> Params:
     """The params tree's structure with logical-axis tuples as leaves
     (the reference's ``param_logical_axes``): what
-    ``parallel.mesh.shard_params`` cuts a serving mesh's shards by. The
-    leading stack axis is 'layers' (never split when serving)."""
+    ``parallel.mesh.shard_params`` cuts a mesh's shards by. The leading
+    stack axis is 'layers' (over pp; never split when serving). A LoRA
+    config's adapters carry ``lora.lora_logical_axes``; the serving
+    engines still refuse trained adapters under a mesh (they merge
+    them first, ``lora.maybe_merge``)."""
     axes: Params = {
         'embed': ('vocab_in', 'embed'),
         'final_norm': ('norm',),
@@ -192,10 +198,6 @@ def param_logical_axes(cfg: ModelConfig) -> Params:
         })
     if not cfg.tie_embeddings:
         axes['unembed'] = ('embed', 'vocab')
-    if cfg.lora_enabled:
-        raise NotImplementedError(
-            'logical axes of LoRA adapters: not ported under a serving '
-            'mesh yet (ROADMAP §1)')
     if cfg.is_moe:
         axes['layers'].update(moe.moe_logical_axes(cfg))
     else:
@@ -204,6 +206,8 @@ def param_logical_axes(cfg: ModelConfig) -> Params:
             'w_up': ('layers', 'embed', 'mlp'),
             'w_down': ('layers', 'mlp', 'embed'),
         })
+    if cfg.lora_enabled:
+        axes['layers']['lora'] = lora.lora_logical_axes(cfg)
     return axes
 
 
@@ -387,14 +391,18 @@ def _unembed_logits(params: Params, x: torch.Tensor,
     'tp'``; a tied one multiplies by this rank's rows of the replicated
     ``embed``): each rank computes its ``[.., vocab / tp]`` columns and
     one all-gather over tp assembles the full logits, so every rank
-    samples the same token."""
+    samples the same token. Under a training mesh the logits stay
+    vocab-sharded: the loss is the vocab-parallel cross-entropy
+    (``train/trainer.py``)."""
+    x = mesh_lib.tp_copy(x, 'vocab')
     if cfg.tie_embeddings:                    # Gemma: unembed = embed^T
-        embed = params['embed']
-        rows = mesh_lib.tp_slice(embed.shape[0], 'vocab')
-        logits = matmul_f32(x, embed[rows].t())
+        logits = matmul_f32(x, mesh_lib.tp_rows(params['embed'],
+                                                'vocab').t())
     else:
         logits = qeinsum('bsd,dv->bsv', x, params['unembed'],
                          out_dtype=torch.float32)
+    if mesh_lib.training() is not None:
+        return logits
     return mesh_lib.gather_split(logits, 'vocab', -1)
 
 
@@ -483,9 +491,12 @@ def _ffn(layer: Params, x: torch.Tensor, cfg: ModelConfig,
          mlora_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
     ml = _bank(layer, mlora_idx)
     lo = _adapters(layer, mlora_idx)
+    # Column-parallel under a training mesh: the gradient of x sums over
+    # tp (mesh.tp_copy; identity elsewhere).
+    xc = mesh_lib.tp_copy(x, 'mlp')
     with remat.weight_products():
-        gate = qeinsum('bsd,df->bsf', x, layer['w_gate'])
-        up = qeinsum('bsd,df->bsf', x, layer['w_up'])
+        gate = qeinsum('bsd,df->bsf', xc, layer['w_gate'])
+        up = qeinsum('bsd,df->bsf', xc, layer['w_up'])
     gate = _plus_lora(gate, lo, 'w_gate', x, cfg)
     up = _plus_lora(up, lo, 'w_up', x, cfg)
     if ml is not None:
@@ -514,10 +525,15 @@ def _attn_inputs(layer: Params, x: torch.Tensor, cfg: ModelConfig,
     ml = _bank(layer, mlora_idx)
     lo = _adapters(layer, mlora_idx)
     h = rms_norm(x, layer['attn_norm'], cfg.norm_eps, cfg.norm_plus_one)
+    # Column-parallel under a training mesh (mesh.tp_copy): one gradient
+    # sum over tp for the q, k and v inputs when both head kinds split.
+    hq = mesh_lib.tp_copy(h, 'heads')
+    hkv = hq if mesh_lib.same_tp_split('heads', 'kv_heads') else \
+        mesh_lib.tp_copy(h, 'kv_heads')
     with remat.weight_products():
-        q = qeinsum('bsd,dhk->bshk', h, layer['wq'])
-        k = qeinsum('bsd,dhk->bshk', h, layer['wk'])
-        v = qeinsum('bsd,dhk->bshk', h, layer['wv'])
+        q = qeinsum('bsd,dhk->bshk', hq, layer['wq'])
+        k = qeinsum('bsd,dhk->bshk', hkv, layer['wk'])
+        v = qeinsum('bsd,dhk->bshk', hkv, layer['wv'])
     q = _plus_lora(q, lo, 'wq', h, cfg)
     k = _plus_lora(k, lo, 'wk', h, cfg)
     v = _plus_lora(v, lo, 'wv', h, cfg)
@@ -529,8 +545,12 @@ def _attn_inputs(layer: Params, x: torch.Tensor, cfg: ModelConfig,
         q = q + layer['bq'].to(q.dtype)
         k = k + layer['bk'].to(k.dtype)
         v = v + layer['bv'].to(v.dtype)
-    return (rope(q, positions, cfg.rope_theta),
-            rope(k, positions, cfg.rope_theta), v)
+    # kv heads replicated over tp beside split q heads: each rank's
+    # attention uses only its q heads, so the k and v gradients sum over
+    # tp under a training mesh.
+    k = mesh_lib.tp_copy_replicated_kv(rope(k, positions, cfg.rope_theta))
+    v = mesh_lib.tp_copy_replicated_kv(v)
+    return rope(q, positions, cfg.rope_theta), k, v
 
 
 def _attn_outputs(layer: Params, x: torch.Tensor, out: torch.Tensor,
@@ -553,10 +573,17 @@ def _attn_outputs(layer: Params, x: torch.Tensor, out: torch.Tensor,
         # the whole batch's (ROADMAP R6): every row is gathered, routed
         # and computed, and this rank's rows kept. Under tp the experts'
         # local mlp columns give a partial sum, reduced as _ffn's is.
-        rows_all, mine = mesh_lib.gather_dp_rows(h)
-        ffn_out, aux = moe.moe_ffn(layer, rows_all, cfg)
-        if mine is not None:
-            ffn_out = ffn_out[mine]
+        # A training mesh gathers every rank's rows and sequence block
+        # the same way (differentiable: the backward reduce-scatters).
+        if mesh_lib.training() is not None:
+            rows_all, (mine, seq) = mesh_lib.gather_rows(h)
+            ffn_out, aux = moe.moe_ffn(layer, rows_all, cfg)
+            ffn_out = ffn_out[mine, seq]
+        else:
+            rows_all, mine = mesh_lib.gather_dp_rows(h)
+            ffn_out, aux = moe.moe_ffn(layer, rows_all, cfg)
+            if mine is not None:
+                ffn_out = ffn_out[mine]
         ffn_out = mesh_lib.reduce_partial(ffn_out, 'mlp')
     else:
         ffn_out, aux = _ffn(layer, h, cfg, mlora_idx), None
@@ -608,49 +635,109 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
     'attn' checkpoints the parts before and after the attention, which
     keeps its own inputs and output, so the backward never re-runs it;
     'dots' keeps the outputs of the products with no batch dimension
-    and recomputes the rest of the layer."""
+    and recomputes the rest of the layer.
+
+    Inside a training mesh's step (``parallel.mesh.training()``) the
+    params are this rank's shards and ``tokens`` its rows and sequence
+    block: the fsdp shards are all-gathered where used, the tp-split
+    products carry their collectives, attention over a split sequence
+    runs sequence-parallel (``ops.attention``), a pp mesh runs the layer
+    stack as its stage of the GPipe schedule
+    (``parallel/pipeline.py``, MoE's aux the mean over the live
+    stage-ticks, as the reference's), and the logits returned are this
+    rank's vocab shard."""
     if cfg.remat not in remat.POLICIES:
         raise ValueError(f'unknown remat policy {cfg.remat!r}; legal: '
                          f'{remat.POLICIES}')
+    from skypilot_tpu_torch.parallel import pipeline as pipeline_lib
+    # Under a training mesh (``mesh.training()``): params are this rank's
+    # shards, all-gathered over fsdp where used (the embedding tables
+    # here, each layer's leaves inside its checkpointed body, so the
+    # backward gathers them again); tokens are this rank's rows and
+    # sequence block, so positions start at the block's offset.
+    sc = mesh_lib.training()
+    gather = sc.plan.get('gather') if sc is not None else None
+    params = dict(params, **mesh_lib.fsdp_gather(
+        {k: params[k] for k in ('embed', 'unembed') if k in params},
+        gather))
+    layer_gather = (gather or {}).get('layers')
     x = _embed_tokens(params, tokens, cfg)
     b, s = tokens.shape
-    positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
+    offset = 0 if sc is None else sc.mesh.axis_index('sp') * s
+    positions = (torch.arange(s, device=tokens.device)[None, :]
+                 + offset).expand(b, s)
 
     def attn_fn(q, k, v):
         return attention(q, k, v, causal=True, impl=attn_impl)
 
-    def layer_fn(layer, x):
-        x, _, aux = _layer_core(layer, x, cfg, positions, attn_fn,
-                                mlora_idx)
+    def layer_fn(layer, x, gathered=False):
+        with mesh_lib.reenter(sc):
+            if not gathered:
+                layer = mesh_lib.fsdp_gather(layer, layer_gather)
+            x, _, aux = _layer_core(layer, x, cfg, positions[:x.shape[0]],
+                                    attn_fn, mlora_idx)
         return x, aux
 
-    def attn_saving_fn(layer, x):
+    def attn_saving_fn(layer, x, gathered=False):
+        if not gathered:
+            layer = mesh_lib.fsdp_gather(layer, layer_gather)
+        pos = positions[:x.shape[0]]
+
+        def inputs(layer, x):
+            with mesh_lib.reenter(sc):
+                return _attn_inputs(layer, x, cfg, pos, mlora_idx)
+
+        def outputs(layer, x, out):
+            with mesh_lib.reenter(sc):
+                return _attn_outputs(layer, x, out, cfg, mlora_idx)
         q, k, v = torch.utils.checkpoint.checkpoint(
-            _attn_inputs, layer, x, cfg, positions, mlora_idx,
-            use_reentrant=False)
+            inputs, layer, x, use_reentrant=False)
         return torch.utils.checkpoint.checkpoint(
-            _attn_outputs, layer, x, attn_fn(q, k, v), cfg, mlora_idx,
-            use_reentrant=False)
+            outputs, layer, x, attn_fn(q, k, v), use_reentrant=False)
 
     policy = cfg.remat if torch.is_grad_enabled() else 'none'
-    auxs = []
-    for layer in unbind_layers(params):
-        if policy == 'none':
-            x, aux = layer_fn(layer, x)
-        elif policy == 'attn':
-            x, aux = attn_saving_fn(layer, x)
-        else:
-            kw = ({'context_fn': remat.dots_contexts} if policy == 'dots'
-                  else {})
-            x, aux = torch.utils.checkpoint.checkpoint(
-                layer_fn, layer, x, use_reentrant=False, **kw)
-        if aux is not None:
-            auxs.append(aux)
+
+    def run_layers(stack, x, gathered=False):
+        """The layers of ``stack`` ({'layers': ...}) in order: (x, their
+        aux values)."""
+        auxs = []
+        for layer in unbind_layers(stack):
+            if policy == 'none':
+                x, aux = layer_fn(layer, x, gathered)
+            elif policy == 'attn':
+                x, aux = attn_saving_fn(layer, x, gathered)
+            else:
+                kw = ({'context_fn': remat.dots_contexts}
+                      if policy == 'dots' else {})
+                x, aux = torch.utils.checkpoint.checkpoint(
+                    layer_fn, layer, x, gathered, use_reentrant=False, **kw)
+            if aux is not None:
+                auxs.append(aux)
+        return x, auxs
+
+    def no_aux():
+        return torch.zeros((), dtype=torch.float32, device=x.device)
+
+    if sc is not None and sc.mesh.axis_size('pp') > 1:
+        # The GPipe schedule over pp: each stage runs its layers on a
+        # microbatch; its aux is their mean. The embedding's gradient
+        # reaches stage 0 only, so it is summed over pp (a tied
+        # unembedding's part is the same on every stage).
+        x = mesh_lib.pp_copy(x)
+
+        def stage_fn(stage_params, x_mb, gathered=False):
+            y, auxs = run_layers({'layers': stage_params}, x_mb, gathered)
+            return y, (torch.stack(auxs).mean() if auxs else no_aux())
+        x, aux = pipeline_lib.pipeline_layers(
+            params['layers'], x, stage_fn, with_aux=True,
+            gather=lambda p: mesh_lib.fsdp_gather(
+                p, mesh_lib.stacked_plan(layer_gather)))
+    else:
+        x, auxs = run_layers(params, x)
+        aux = torch.stack(auxs).mean() if auxs else no_aux()
     x = rms_norm(x, params['final_norm'], cfg.norm_eps, cfg.norm_plus_one)
     logits = _unembed_logits(params, x, cfg)
     if return_aux:
-        aux = (torch.stack(auxs).mean() if auxs else
-               torch.zeros((), dtype=torch.float32, device=logits.device))
         return logits, aux
     return logits
 

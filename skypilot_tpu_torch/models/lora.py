@@ -20,6 +20,13 @@
 
 Per-request adapters over one base are the multi-LoRA bank
 (``models/multilora.py``).
+
+Under a training mesh the adapters carry the reference's logical axes
+(:func:`lora_logical_axes`: the rank axis replicated, the input and
+output axes those of the adapted projection), and a column-parallel
+target's rank-``r`` product enters its tp-split ``b`` through
+``mesh.tp_copy`` (and a row-parallel target's replicated ``b`` meets
+the partial product the same way), so their gradients sum over tp.
 """
 from __future__ import annotations
 
@@ -30,6 +37,7 @@ import torch
 
 from skypilot_tpu_torch.models import remat
 from skypilot_tpu_torch.models.configs import ModelConfig
+from skypilot_tpu_torch.parallel import mesh as mesh_lib
 from skypilot_tpu_torch.utils.device import DeviceLike, resolve_device
 
 Params = Dict[str, Any]
@@ -78,6 +86,37 @@ def _target_shapes(cfg: ModelConfig, target: str):
     }[target]
 
 
+def _target_axes(target: str):
+    """Logical axes for (a, b), leading 'layers' axis included. The rank
+    axis is None (replicated); the input and output axes mirror the
+    adapted projection's."""
+    axes = {
+        'wq': (('embed', None), (None, 'heads', 'head_dim')),
+        'wk': (('embed', None), (None, 'kv_heads', 'head_dim')),
+        'wv': (('embed', None), (None, 'kv_heads', 'head_dim')),
+        'wo': (('heads', 'head_dim', None), (None, 'embed')),
+        'w_gate': (('embed', None), (None, 'mlp')),
+        'w_up': (('embed', None), (None, 'mlp')),
+        'w_down': (('mlp', None), (None, 'embed')),
+    }[target]
+    return tuple(('layers',) + a for a in axes)
+
+
+def lora_logical_axes(cfg: ModelConfig) -> Params:
+    """The adapter subtree's logical axes (the reference's)."""
+    return {t: {'a': _target_axes(t)[0], 'b': _target_axes(t)[1]}
+            for t in resolve_targets(cfg)}
+
+
+# The tp-split logical axis of each column-parallel target's output; a
+# row-parallel target's input is split instead (its partial sum is
+# reduced with its base product's, and its replicated ``b`` meets that
+# partial sum).
+_COLUMN_SPLIT = {'wq': 'heads', 'wk': 'kv_heads', 'wv': 'kv_heads',
+                 'w_gate': 'mlp', 'w_up': 'mlp'}
+_ROW_SPLIT = {'wo': 'heads', 'w_down': 'mlp'}
+
+
 def init_lora_layers(cfg: ModelConfig, gen: torch.Generator, *,
                      device: DeviceLike = 'cuda') -> Params:
     """The ``params['layers']['lora']`` subtree: per-target a/b stacks
@@ -105,11 +144,13 @@ def _ab_matmul(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     """x -> (x @ a) @ b for one layer's adapter, the factors cast to x's
     dtype (each product rounds to it, as the reference's einsums do)."""
     dt = x.dtype
+    b = mesh_lib.tp_copy(b, _ROW_SPLIT.get(target))
     with remat.weight_products():
         if target == 'wo':                       # x: [b, s, h, k]
             z = torch.einsum('bshk,hkr->bsr', x, a.to(dt))
             return torch.einsum('bsr,rd->bsd', z, b.to(dt))
         z = torch.einsum('bsd,dr->bsr', x, a.to(dt))
+        z = mesh_lib.tp_copy(z, _COLUMN_SPLIT.get(target))
         if target in ('wq', 'wk', 'wv'):
             return torch.einsum('bsr,rhk->bshk', z, b.to(dt))
         return torch.einsum('bsr,rf->bsf', z, b.to(dt))

@@ -2,7 +2,11 @@
 ``skypilot_tpu/models/moe.py``). Its leaves carry the reference's
 logical axes (:func:`moe_logical_axes`); on a serving mesh the expert
 axis has size 1, so every rank holds every expert with its ffn width
-split over tp and :func:`moe_ffn` returns a partial sum over tp.
+split over tp and :func:`moe_ffn` returns a partial sum over tp. On a
+training mesh the experts fold over fsdp x sp and are all-gathered per
+layer as fsdp gathers (``mesh.fsdp_gather``), and the layer computes
+on every rank's tokens (``mesh.gather_rows``), so routing, capacity and
+the drops are the whole batch's, as the reference's are (R6).
 
 Dispatch is GShard-style capacity-based top-k: tokens are taken in
 groups of :data:`_MOE_GROUP_SIZE`, each expert processes a fixed
@@ -36,6 +40,7 @@ import torch.nn.functional as F
 from skypilot_tpu_torch.models import remat
 from skypilot_tpu_torch.models.configs import ModelConfig
 from skypilot_tpu_torch.models.quantization import deq, matmul_f32
+from skypilot_tpu_torch.parallel import mesh as mesh_lib
 
 Params = Dict[str, Any]
 
@@ -163,8 +168,13 @@ def moe_ffn(layer: Params, x: torch.Tensor, cfg: ModelConfig):
     combine = torch.einsum('gtk,gtkec->gtec',
                            topk_w.reshape(G, group, k).to(x.dtype), dispatch)
 
+    # Under a training mesh with the experts' ffn width split over tp,
+    # the replicated dispatch and combine meet tp-split products: their
+    # gradients sum over tp (mesh.tp_copy; identity elsewhere).
+    combine = mesh_lib.tp_copy(combine, 'mlp')
     xg = xt.reshape(G, group, d)
-    expert_in = torch.einsum('gtec,gtd->gecd', dispatch_mask, xg)
+    expert_in = mesh_lib.tp_copy(
+        torch.einsum('gtec,gtd->gecd', dispatch_mask, xg), 'mlp')
     gate = torch.einsum('gecd,edf->gecf', expert_in, deq(layer['moe_gate']))
     up = torch.einsum('gecd,edf->gecf', expert_in, deq(layer['moe_up']))
     h = F.silu(gate.float()).to(x.dtype) * up

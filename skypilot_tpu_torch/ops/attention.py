@@ -257,23 +257,77 @@ def attention(
     impl: str = 'auto',
 ) -> torch.Tensor:
     """Dispatching attention entry point of the models. impl: 'auto' |
-    'xla' | 'flash' ('ring' and 'ulysses', the sequence-parallel paths,
-    are not ported). 'auto' takes the K4 CUDA kernel for every causal
-    un-cached attention the kernel supports on CUDA (head_dim 64
-    included, which the reference's TPU rule sends to XLA), and the plain
-    path elsewhere (the CPU included, as the reference does off the TPU);
-    'flash' asks for the kernel anywhere (the plain version on the CPU);
-    'xla' is the plain path. The flash path carries gradients: its
-    backward runs K5a/K5b on CUDA (the plain backward on the CPU)."""
-    if impl in ('ring', 'ulysses'):
-        raise NotImplementedError(
-            f'attention impl {impl!r} (sequence parallel) is not ported')
-    if impl not in ('auto', 'xla', 'flash'):
+    'xla' | 'flash' | 'ring' | 'ulysses'. 'auto' takes the K4 CUDA
+    kernel for every causal un-cached attention the kernel supports on
+    CUDA (head_dim 64 included, which the reference's TPU rule sends to
+    XLA), and the plain path elsewhere (the CPU included, as the
+    reference does off the TPU); 'flash' asks for the kernel anywhere
+    (the plain version on the CPU); 'xla' is the plain path. The flash
+    path carries gradients: its backward runs K5a/K5b on CUDA (the plain
+    backward on the CPU).
+
+    Inside a training mesh's step whose sequence splits over sp
+    (``mesh.training()``, sp > 1) q/k/v are this rank's sequence block:
+    'ring' (``ops/ring_attention.py``) and 'ulysses' (``ops/ulysses.py``)
+    run sequence-parallel, as the reference's do on its ambient mesh;
+    'xla' gathers the whole k/v over sp and masks by the block's
+    offset, the reference's XLA attention over a split sequence; 'auto'
+    and 'flash' take the ring, whose blocks run K4 (K5a/K5b in the
+    backward) on CUDA. Outside such a mesh 'ring' and 'ulysses' take
+    the plain path, as the reference's do without one."""
+    if impl not in ('auto', 'xla', 'flash', 'ring', 'ulysses'):
         raise ValueError(f'unknown attention impl {impl!r}')
     uncached = q_offset is None and kv_len is None
+    sc = _seq_parallel_scope()
+    if sc is not None:
+        if not uncached:
+            raise ValueError('sequence-parallel attention is a '
+                             'full-sequence path; decode masking args are '
+                             'not supported')
+        if impl == 'ulysses':
+            from skypilot_tpu_torch.ops.ulysses import ulysses_attention
+            return ulysses_attention(q, k, v, causal=causal)
+        if impl == 'xla':
+            from skypilot_tpu_torch.parallel import mesh as mesh_lib
+            offset = sc.mesh.axis_index('sp') * q.shape[1]
+            return reference_attention(
+                q, mesh_lib.gather_seq(k), mesh_lib.gather_seq(v),
+                causal=causal, q_offset=torch.full(
+                    (q.shape[0],), offset, dtype=torch.long,
+                    device=q.device))
+        from skypilot_tpu_torch.ops.ring_attention import ring_attention
+        return ring_attention(q, k, v, causal=causal,
+                              block_impl='flash' if impl == 'flash'
+                              else 'auto')
+    return local_attention(q, k, v, causal=causal, q_offset=q_offset,
+                           kv_len=kv_len, impl=impl)
+
+
+def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    q_offset: Optional[torch.Tensor] = None,
+                    kv_len: Optional[torch.Tensor] = None,
+                    impl: str = 'auto') -> torch.Tensor:
+    """:func:`attention` over the whole of q/k/v as given, never
+    sequence-parallel: what Ulysses runs on each rank's heads. 'ring' and
+    'ulysses' take the plain path here."""
+    uncached = q_offset is None and kv_len is None
+    if impl in ('ring', 'ulysses'):
+        return reference_attention(q, k, v, causal=causal,
+                                   q_offset=q_offset, kv_len=kv_len)
     use_flash = impl == 'flash' or (impl == 'auto' and causal and uncached
                                     and _flash_takes(q, k))
     if use_flash:
         return flash_attention.flash_attention(q, k, v, causal=causal)
     return reference_attention(q, k, v, causal=causal, q_offset=q_offset,
                                kv_len=kv_len)
+
+
+def _seq_parallel_scope():
+    """The active training mesh's scope when its sequence splits over sp
+    (sp > 1), else None."""
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    sc = mesh_lib.training()
+    if sc is None or sc.mesh.axis_size('sp') == 1:
+        return None
+    return sc

@@ -1,5 +1,6 @@
-"""The (tp, dp) serving mesh over ``torch.distributed`` (port of the
-serving part of ``skypilot_tpu/parallel/mesh.py``).
+"""The mesh over ``torch.distributed`` (port of
+``skypilot_tpu/parallel/mesh.py``): the (tp, dp) serving mesh and the
+six-axis training mesh ``('slice', 'pp', 'dp', 'fsdp', 'sp', 'tp')``.
 
 The JAX package drives every device of a mesh from one controller and
 lets XLA insert the collectives. PyTorch's idiom is SPMD, one process
@@ -9,33 +10,50 @@ per device, and so is this module's:
   per extra rank (``python -m skypilot_tpu_torch.parallel.follower``: a
   fresh interpreter that imports this package only, never the caller's
   main module) and return rank 0's :class:`ServingMesh`: a process
-  group (``nccl`` on CUDA, ``gloo`` on the CPU) with a ``DeviceMesh`` of
-  dims ``('dp', 'tp')`` (``tp`` innermost, as the reference's
-  ``make_mesh`` orders its axes) and a gloo group that carries rank 0's
-  control messages.
+  group (``nccl`` on CUDA, ``gloo`` on the CPU), one process group per
+  mesh axis (and per combination of axes the collectives use: the data
+  axes, the expert axes, the whole world) with ranks laid out
+  row-major over :data:`MESH_AXES` (``tp`` innermost, as the
+  reference's ``make_mesh`` orders its axes), and two gloo groups that
+  carry rank 0's control messages: the doorbell, on which an idle
+  follower waits for rank 0's next call, and the control group of the
+  per-call agreement. Both are bounded by the mesh's timeout like every
+  collective inside a call; while the mesh is idle rank 0 rings the
+  doorbell with a no-op (``('ping',)``) at a fraction of that timeout,
+  so an idle follower waits for as long as rank 0 lives.
 - Rank 0 owns every host decision (the server, the scheduler, the
-  tokenizer). An engine built with ``mesh=`` sends its constructor's
-  arguments to the followers, and each mirrored engine method
-  (:func:`mirrored`) sends its name and arguments before it runs, so
-  every rank runs the same engine calls in the same order with the same
-  arguments and keeps the same host state (slots, page tables,
-  generator seeds). No rank reads another's device tensors outside a
-  collective. The followers' loop is ``parallel/follower.py``.
+  tokenizer, the training loop). An engine or a trainer built with
+  ``mesh=`` sends its constructor's arguments to the followers, and
+  each mirrored method (:func:`mirrored`) sends its name and arguments
+  before it runs, so every rank runs the same calls in the same order
+  with the same arguments and keeps the same host state. No rank reads
+  another's device tensors outside a collective. The followers' loop is
+  ``parallel/follower.py``.
 - Each rank holds only its shard of the weights (:func:`shard_params`,
   by the logical axes of ``models/llama.py`` and the reference's
-  :data:`DEFAULT_RULES`, divisibility-aware as its ``spec_for``) and of
-  the KV pool.
-- Every collective of the port goes through :func:`all_reduce` and
-  :func:`all_gather` here, inside a mirrored call's scope
-  (:func:`active`). They count what they issue (:data:`collective_counts`,
+  :data:`DEFAULT_RULES`, divisibility-aware as its ``spec_for``): the
+  serving engines' over (tp, dp), the trainer's over all six axes.
+- Every collective of the port goes through this module, inside a
+  mirrored call's scope (:func:`active`): :func:`all_reduce` and
+  :func:`all_gather` for the engines; for training, the
+  ``torch.autograd.Function`` pairs whose forward and backward
+  collectives mirror each other (:func:`tp_copy` / :func:`reduce_partial`
+  for the column- and row-parallel products, :func:`fsdp_gather` whose
+  backward is a reduce-scatter, :func:`gather_rows`, the
+  sequence-parallel :func:`exchange` and :func:`all_to_all`). They
+  count what they issue (:data:`collective_counts`,
   :data:`collective_shapes`: the audits' census; a CUDA graph's replays
-  add what its capture recorded, ``inference/graphs.py``) and, under
-  the cost model's recorder, price their bytes per mesh axis instead of
+  add what its capture recorded, ``inference/graphs.py``) and, under the
+  cost model's recorder, price their bytes per mesh axis instead of
   communicating.
 
-A follower that dies makes rank 0 raise: before every control message
-rank 0 checks that each follower it started is alive, and a collective
-with a dead peer fails within the process group's timeout.
+A follower that dies or hangs makes rank 0 raise: before every control
+message rank 0 checks that each follower it started is alive, and a
+collective (a doorbell ring too) with a dead or stalled peer fails
+within the process group's timeout. A follower whose rank 0 dies leaves
+at once (its doorbell connection closes, and a follower rank 0 spawned
+also watches its parent process); one whose rank 0 stalls or whose host
+is lost leaves when no ring came within the timeout.
 
 Multi-host bootstrap (the reference's ``jax_coordinator_from_url``,
 ``initialize_gang_distributed`` and ``initialize_distributed_from_env``,
@@ -54,9 +72,11 @@ as ``init_process_group`` with a ``tcp://host:port`` rendezvous):
   launcher already started (one ``python -m
   skypilot_tpu_torch.serve.server --gang-rank N`` per rank, on one host
   or several), met over that TCP rendezvous instead of the
-  ``FileStore`` of :func:`make_mesh`. Rank 0 keeps the control channel,
-  the per-call agreement and the census as above; a nonzero rank runs
-  ``parallel/follower.py``'s loop on it.
+  ``FileStore`` of :func:`make_mesh`; :func:`launched_mesh` does the
+  same for a launched training job (``python -m
+  skypilot_tpu_torch.train`` on every node). Rank 0 keeps the control
+  channel, the per-call agreement and the census as above; a nonzero
+  rank runs ``parallel/follower.py``'s loop on it.
 """
 from __future__ import annotations
 
@@ -81,6 +101,30 @@ MESH_AXES = ('slice', 'pp', 'dp', 'fsdp', 'sp', 'tp')
 # Seconds a process group waits for a peer before a collective (or the
 # start-up rendezvous) fails.
 DEFAULT_TIMEOUT_S = 120.0
+
+# Seconds the start-up rendezvous of a mesh whose followers
+# :func:`make_mesh` spawns waits for them at least (each is an
+# interpreter importing torch: slow on a loaded host).
+STARTUP_TIMEOUT_S = 300.0
+
+# While the mesh is idle, rank 0 rings the doorbell with a no-op once
+# per this share of the mesh's timeout, so an idle follower's wait
+# (bounded by that timeout, as every wait of the mesh) never runs out
+# while rank 0 lives.
+PING_FRACTION = 0.25
+
+# The data axes (the batch splits over them) and the expert axes (MoE
+# experts fold over them), as the reference's DEFAULT_RULES map 'batch'
+# and 'expert'.
+DATA_AXES = ('slice', 'dp', 'fsdp')
+EXPERT_AXES = ('fsdp', 'sp')
+# Every axis combination a collective runs over: each single axis, the
+# data axes with and without sp (the loss's denominators, the gradient
+# sums; without fsdp for a leaf whose gather already reduce-scattered
+# over it), the expert axes and the whole world.
+GROUP_AXES = tuple((a,) for a in MESH_AXES) + (
+    DATA_AXES, DATA_AXES + ('sp',), ('slice', 'dp'), ('slice', 'dp', 'sp'),
+    EXPERT_AXES, MESH_AXES)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -188,6 +232,40 @@ def data_axis_size(mesh) -> int:
     """Global data-parallel degree (batch must be divisible by this)."""
     sizes = _axis_sizes(mesh)
     return sizes['slice'] * sizes['dp'] * sizes['fsdp']
+
+
+def batch_sharding(mesh=None, rules: Optional['LogicalRules'] = None
+                   ) -> Tuple[Any, ...]:
+    """The spec of ``[batch, seq]`` token arrays (the reference's
+    ``batch_sharding``, as a spec tuple): the batch over the data axes,
+    the sequence over sp. ``mesh`` is accepted for the reference's
+    signature; the spec does not depend on it."""
+    del mesh
+    return spec_for(('batch', 'seq'), rules)
+
+
+def axes_key(axes) -> Tuple[str, ...]:
+    """A mesh axis name or a collection of them, as a tuple in
+    :data:`MESH_AXES` order (the key of a process group)."""
+    names = (axes,) if isinstance(axes, str) else tuple(axes)
+    unknown = set(names) - set(MESH_AXES)
+    if unknown:
+        raise ValueError(f'unknown mesh axes {sorted(unknown)}')
+    return tuple(a for a in MESH_AXES if a in names)
+
+
+def group_ranks(sizes: Dict[str, int], axes) -> List[List[int]]:
+    """Every process group over ``axes``: the lists of global ranks that
+    agree on every other axis, each in ascending order (so a group's
+    rank order is the row-major index over ``axes``, the order in which
+    :func:`spec_for` numbers a shard split over several axes)."""
+    key = axes_key(axes)
+    groups: Dict[Tuple[int, ...], List[int]] = {}
+    for r in range(math.prod(sizes[a] for a in MESH_AXES)):
+        c = _coords(sizes, r)
+        groups.setdefault(tuple(c[a] for a in MESH_AXES if a not in key),
+                          []).append(r)
+    return [groups[k] for k in sorted(groups)]
 
 
 # --- Logical axis rules ----------------------------------------------------
@@ -431,40 +509,96 @@ def _note(op: str, axis: str, t: torch.Tensor) -> bool:
     return True
 
 
-def all_reduce(x: torch.Tensor, axis: str = 'tp',
+_REDUCE_OPS = ('sum', 'max', 'min')
+
+
+def _axis_name(axis) -> str:
+    """The census name of a mesh axis or of a combination of them."""
+    return ','.join(axes_key(axis))
+
+
+def _dist_reduce_op(op: str):
+    import torch.distributed as dist
+    return {'sum': dist.ReduceOp.SUM, 'max': dist.ReduceOp.MAX,
+            'min': dist.ReduceOp.MIN}[op]
+
+
+def _comm_all_reduce(mesh: 'ServingMesh', y: torch.Tensor, axis,
+                     op: str = 'sum') -> None:
+    """Reduce the contiguous ``y`` in place over ``axis`` of ``mesh``
+    (counted; nothing moves over an axis of one rank)."""
+    if op not in _REDUCE_OPS:
+        raise ValueError(f'unknown all_reduce op {op!r}')
+    name = 'all_reduce' if op == 'sum' else f'all_reduce_{op}'
+    if _note(name, _axis_name(axis), y):
+        g = mesh.group(axis)
+        if g is not None:
+            import torch.distributed as dist
+            dist.all_reduce(y, op=_dist_reduce_op(op), group=g)
+
+
+def _comm_all_gather(mesh: 'ServingMesh', x: torch.Tensor, axis,
+                     dim: int = 0) -> torch.Tensor:
+    """Every rank's ``x`` over ``axis`` concatenated along ``dim``, in
+    the group's rank order."""
+    n = mesh.axis_size(axis)
+    y = x.contiguous()
+    if not _note('all_gather', _axis_name(axis), y):
+        return torch.cat([y] * n, dim=dim)
+    g = mesh.group(axis)
+    if g is None:
+        return y
+    import torch.distributed as dist
+    parts = [torch.empty_like(y) for _ in range(n)]
+    dist.all_gather(parts, y, group=g)
+    return torch.cat(parts, dim=dim)
+
+
+def _comm_reduce_scatter(mesh: 'ServingMesh', x: torch.Tensor, axis,
+                         dim: int = 0) -> torch.Tensor:
+    """The sum over ``axis`` of ``x``, this rank's ``1/n`` block of it
+    along ``dim`` (block ``i`` to the group's rank ``i``): the
+    transpose of :func:`_comm_all_gather`."""
+    n = mesh.axis_size(axis)
+    y = x.movedim(dim, 0).contiguous()
+    if not _note('reduce_scatter', _axis_name(axis), y):
+        return y[:y.shape[0] // n].movedim(0, dim)
+    g = mesh.group(axis)
+    if g is None:
+        return x
+    import torch.distributed as dist
+    out = torch.empty((y.shape[0] // n,) + tuple(y.shape[1:]),
+                      dtype=y.dtype, device=y.device)
+    # ``reduce_scatter_single`` where this torch has it (the older name
+    # is deprecated there).
+    getattr(dist, 'reduce_scatter_single', dist.reduce_scatter_tensor)(
+        out, y, group=g)
+    return out.movedim(0, dim)
+
+
+def all_reduce(x: torch.Tensor, axis='tp',
                op: str = 'sum') -> torch.Tensor:
-    """Reduce ``x`` over the active mesh's ``axis``, its sum or (``op=
-    'max'``) its elementwise max, in place on a contiguous ``x``;
-    returns the result. The census names a max ``all_reduce_max``."""
+    """Reduce ``x`` over the active mesh's ``axis`` (a name or a tuple
+    of names), its sum or (``op='max'``/``'min'``) its elementwise max
+    or min, in place on a contiguous ``x``; returns the result. The
+    census names a max ``all_reduce_max`` and a min
+    ``all_reduce_min``. No autograd: :func:`reduce_sum` is the
+    differentiable sum."""
     sc = active()
     if sc is None:
         raise RuntimeError('all_reduce outside a mesh scope')
-    if op not in ('sum', 'max'):
-        raise ValueError(f'unknown all_reduce op {op!r}')
     y = x if x.is_contiguous() else x.contiguous()
-    if _note('all_reduce' if op == 'sum' else 'all_reduce_max', axis, y):
-        import torch.distributed as dist
-        dist.all_reduce(y, op=(dist.ReduceOp.SUM if op == 'sum'
-                               else dist.ReduceOp.MAX),
-                        group=sc.mesh.group(axis))
+    _comm_all_reduce(sc.mesh, y, axis, op)
     return y
 
 
-def all_gather(x: torch.Tensor, axis: str = 'tp',
-               dim: int = 0) -> torch.Tensor:
+def all_gather(x: torch.Tensor, axis='tp', dim: int = 0) -> torch.Tensor:
     """The active mesh's ``axis`` ranks' ``x`` concatenated along
     ``dim``, in rank order."""
     sc = active()
     if sc is None:
         raise RuntimeError('all_gather outside a mesh scope')
-    n = sc.mesh.shape[axis]
-    y = x.contiguous()
-    if not _note('all_gather', axis, y):
-        return torch.cat([y] * n, dim=dim)
-    import torch.distributed as dist
-    parts = [torch.empty_like(y) for _ in range(n)]
-    dist.all_gather(parts, y, group=sc.mesh.group(axis))
-    return torch.cat(parts, dim=dim)
+    return _comm_all_gather(sc.mesh, x, axis, dim)
 
 
 def reduce_partial(x: torch.Tensor, logical: str) -> torch.Tensor:
@@ -474,6 +608,8 @@ def reduce_partial(x: torch.Tensor, logical: str) -> torch.Tensor:
     sc = active()
     if sc is None or not sc.plan.get(logical):
         return x
+    if sc.plan.get('train'):
+        return _ReduceSum.apply(x, sc.mesh, 'tp')
     return all_reduce(x, 'tp')
 
 
@@ -547,7 +683,7 @@ def gather_dp_blocks(tensors: Sequence[torch.Tensor],
     sc = active()
     if sc is None:
         raise RuntimeError('gather_dp_blocks outside a mesh scope')
-    n = sc.mesh.shape['dp']
+    n = sc.mesh.axis_size('dp')
     flat = [t.contiguous().view(-1).view(torch.uint8) for t in tensors]
     sizes = [f.numel() for f in flat]
     every = all_gather(torch.cat(flat), 'dp', 0).view(n, -1)
@@ -672,6 +808,444 @@ def shard_config(cfg, mesh):
 
 
 # --------------------------------------------------------------------------
+# Training: differentiable collectives
+# --------------------------------------------------------------------------
+# Each autograd Function keeps its mesh and axes in ``ctx``: a CUDA
+# backward runs on the autograd engine's device thread, where this
+# thread's scope is not active.
+def training() -> Optional[_Scope]:
+    """The active scope when it is a training mesh's (its plan has
+    ``'train'``), else None."""
+    sc = active()
+    return sc if sc is not None and sc.plan.get('train') else None
+
+
+@contextlib.contextmanager
+def reenter(sc: Optional[_Scope]):
+    """Make the scope ``sc`` (captured in a forward) active again, for a
+    function that may run on another thread: a checkpointed layer's
+    recomputation in the backward. A no-op for None."""
+    if sc is None:
+        yield
+        return
+    stack = getattr(_tls, 'scopes', None)
+    if stack is None:
+        stack = _tls.scopes = []
+    stack.append(sc)
+    try:
+        yield
+    finally:
+        stack.pop()
+
+
+class _ReduceSum(torch.autograd.Function):
+    """Forward: the sum over ``axes`` (an all-reduce); backward: the
+    gradient as it is (every rank holds the whole upstream gradient).
+    The row-parallel product's reduction, and the vocab-parallel loss's
+    sums."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        y = x.contiguous().clone()
+        _comm_all_reduce(mesh, y, axes)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _CopyReduceGrad(torch.autograd.Function):
+    """Forward: ``x`` as it is; backward: the sum of the gradient over
+    ``axes``. Where a tensor replicated over tp meets a tp-split
+    product, each rank's gradient is a partial sum."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        _comm_all_reduce(ctx.mesh, g, ctx.axes)
+        return g, None, None
+
+
+class _SliceGatherGrad(torch.autograd.Function):
+    """Forward: this rank's block along ``dim`` of ``x`` (replicated over
+    ``axes``); backward: every rank's block gradient all-gathered into
+    the whole gradient."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        n, i = mesh.axis_size(axes), mesh.axis_index(axes)
+        per = x.shape[dim] // n
+        return x.narrow(dim, i * per, per)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_comm_all_gather(ctx.mesh, g, ctx.axes, ctx.dim), None,
+                None, None)
+
+
+def reduce_sum(x: torch.Tensor, axis) -> torch.Tensor:
+    """The differentiable sum of ``x`` over the active training mesh's
+    ``axis`` (gradient passed through as it is)."""
+    return _ReduceSum.apply(x, training().mesh, axis)
+
+
+def tp_copy(x: torch.Tensor, logical: str) -> torch.Tensor:
+    """``x`` (replicated over tp) where it enters a product split over tp
+    by ``logical``: its gradient is summed over tp in the backward (the
+    column-parallel input's Function; the pair of :func:`reduce_partial`).
+    ``x`` itself outside a training scope or when ``logical`` is not
+    split."""
+    sc = training()
+    if sc is None or not sc.plan.get(logical):
+        return x
+    return _CopyReduceGrad.apply(x, sc.mesh, 'tp')
+
+
+def pp_copy(x: torch.Tensor) -> torch.Tensor:
+    """The activation entering a pp mesh's pipeline: only stage 0 uses
+    it, so its gradient is summed over pp (every stage's embedding then
+    takes the whole gradient). ``x`` itself without pp."""
+    sc = training()
+    if sc is None or sc.mesh.axis_size('pp') == 1:
+        return x
+    return _CopyReduceGrad.apply(x, sc.mesh, 'pp')
+
+
+def stacked_plan(plan: Optional[Dict[str, Any]]) -> Optional[Dict[str, Any]]:
+    """A per-layer gather plan (:func:`gather_plan`'s ``'layers'``) for
+    stacked leaves: each gathered dim one further in."""
+    if plan is None:
+        return None
+    return {k: (stacked_plan(v) if isinstance(v, dict) else
+                None if v is None else (v[0] + 1, v[1]))
+            for k, v in plan.items()}
+
+
+def same_tp_split(a: str, b: str) -> bool:
+    """Whether the active plan splits logical dims ``a`` and ``b`` over
+    tp alike (both or neither; True without a scope)."""
+    sc = active()
+    return sc is None or bool(sc.plan.get(a)) == bool(sc.plan.get(b))
+
+
+def tp_copy_replicated_kv(x: torch.Tensor) -> torch.Tensor:
+    """k or v rows whose kv heads are replicated over tp while the q
+    heads split (``kv_head_layout``): under a training mesh their
+    gradient sums over tp, each rank's q heads having used them."""
+    sc = training()
+    if sc is None or not sc.plan.get('heads') or sc.plan.get('kv_heads'):
+        return x
+    return _CopyReduceGrad.apply(x, sc.mesh, 'tp')
+
+
+def tp_rows(t: torch.Tensor, logical: str, dim: int = 0) -> torch.Tensor:
+    """This tp rank's block of a tensor replicated over tp (a tied
+    embedding's vocab rows), differentiable: the backward all-gathers
+    the blocks' gradients, so every rank holds the whole gradient."""
+    sc = active()
+    if sc is None or not sc.plan.get(logical):
+        return t
+    if sc.plan.get('train'):
+        return _SliceGatherGrad.apply(t, sc.mesh, 'tp', dim)
+    return t[tp_slice(t.shape[dim], logical)]
+
+
+class _GatherLeaves(torch.autograd.Function):
+    """All-gather several leaves over ``axes`` in ONE collective, each
+    along its own dim; the backward reduce-scatters their gradients in
+    one collective too (a rank keeps the sum of its own blocks)."""
+
+    @staticmethod
+    def forward(ctx, mesh, axes, dims, *xs):
+        n = mesh.axis_size(axes)
+        ctx.mesh, ctx.axes, ctx.dims = mesh, axes, dims
+        ctx.shapes = [x.shape for x in xs]
+        flat = torch.cat([x.movedim(d, 0).reshape(-1)
+                          for x, d in zip(xs, dims)])
+        every = _comm_all_gather(mesh, flat, axes, 0).view(n, -1)
+        out, off = [], 0
+        for x, d in zip(xs, dims):
+            m = x.numel()
+            moved = x.movedim(d, 0).shape
+            blocks = every[:, off:off + m].reshape((n,) + tuple(moved))
+            out.append(blocks.reshape((n * moved[0],) + tuple(moved[1:]))
+                       .movedim(0, d))
+            off += m
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        n = ctx.mesh.axis_size(ctx.axes)
+        parts = []
+        for g, d, shape in zip(gs, ctx.dims, ctx.shapes):
+            moved = g.movedim(d, 0)
+            parts.append(moved.reshape(n, -1))
+        flat = torch.cat(parts, dim=1)
+        mine = _comm_reduce_scatter(ctx.mesh, flat, ctx.axes, 0)
+        mine = mine.reshape(-1)
+        out, off = [], 0
+        for d, shape in zip(ctx.dims, ctx.shapes):
+            m = math.prod(shape)
+            moved = torch.Size((shape[d],) + tuple(
+                shape[i] for i in range(len(shape)) if i != d))
+            out.append(mine[off:off + m].reshape(moved).movedim(0, d))
+            off += m
+        return (None, None, None) + tuple(out)
+
+
+def fsdp_gather(tree: Dict[str, Any], plan: Dict[str, Any]
+                ) -> Dict[str, Any]:
+    """The leaves of ``tree`` (one layer's params, or the top-level
+    ``embed``/``unembed``) with their fsdp shards all-gathered: ``plan``
+    maps a leaf's name (nested dicts alike) to ``(dim, axes)``, the dim
+    split over the mesh axes ``axes`` (``('fsdp',)``, or the experts'
+    ``('fsdp', 'sp')``). Leaves of one axes, dtype and grad requirement
+    go in one collective, whose backward reduce-scatters their
+    gradients. ``tree`` itself outside a training scope."""
+    sc = training()
+    if sc is None or not plan:
+        return tree
+    flat: List[Tuple[Tuple[str, ...], torch.Tensor, int, Any]] = []
+
+    def walk(path, t, p):
+        for k, v in t.items():
+            if isinstance(v, dict):
+                walk(path + (k,), v, (p or {}).get(k))
+            elif p is not None and k in p and p[k] is not None:
+                flat.append((path + (k,), v) + tuple(p[k]))
+    walk((), tree, plan)
+    groups: Dict[Any, List[int]] = {}
+    for i, (_, t, _, axes) in enumerate(flat):
+        groups.setdefault((axes, t.dtype, t.requires_grad), []).append(i)
+    got: Dict[Tuple[str, ...], torch.Tensor] = {}
+    for (axes, _, _), idx in groups.items():
+        outs = _GatherLeaves.apply(sc.mesh, axes,
+                                   tuple(flat[i][2] for i in idx),
+                                   *(flat[i][1] for i in idx))
+        for i, o in zip(idx, outs):
+            got[flat[i][0]] = o
+
+    def rebuild(path, t):
+        return {k: (rebuild(path + (k,), v) if isinstance(v, dict)
+                    else got.get(path + (k,), v)) for k, v in t.items()}
+    return rebuild((), tree)
+
+
+class _GatherRows(torch.autograd.Function):
+    """All-gather ``x`` over ``axes`` along ``dim``; backward: the
+    reduce-scatter of the gradient (each rank keeps its block's sum)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return _comm_all_gather(mesh, x, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_comm_reduce_scatter(ctx.mesh, g, ctx.axes, ctx.dim),
+                None, None, None)
+
+
+def gather_seq(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """The whole sequence of ``x`` (this rank's sp block along ``dim``),
+    all-gathered over sp, differentiable; ``x`` itself without sp."""
+    sc = training()
+    if sc is None or sc.mesh.axis_size('sp') == 1:
+        return x
+    return _GatherRows.apply(x, sc.mesh, 'sp', dim)
+
+
+def gather_rows(x: torch.Tensor):
+    """``(the whole batch's x, (rows, seq) of this rank in it))`` for a
+    ``[b, s, ...]`` activation that holds this rank's rows (over the
+    data axes) and sequence block (over sp), differentiable: what a layer
+    that must see every token (MoE's routing, R6) computes on. ``(x,
+    None)`` outside a training scope."""
+    sc = training()
+    if sc is None:
+        return x, None
+    mesh = sc.mesh
+    b, s = x.shape[:2]
+    full = _GatherRows.apply(x, mesh, 'sp', 1)
+    full = _GatherRows.apply(full, mesh, DATA_AXES, 0)
+    i, j = mesh.axis_index(DATA_AXES), mesh.axis_index('sp')
+    return full, (slice(i * b, (i + 1) * b), slice(j * s, (j + 1) * s))
+
+
+def gather_plan(logical_tree: Any, shapes: Any, mesh,
+                rules: Optional['LogicalRules'] = None) -> Dict[str, Any]:
+    """For each leaf of a params tree, the ``(dim, axes)`` an fsdp gather
+    restores before use (a leaf split over fsdp, or the experts over
+    fsdp x sp), or None; a stacked layer leaf's dim is counted without
+    its 'layers' axis. ``shapes`` is the full tree (tensors or shapes)."""
+    sizes = _axis_sizes(mesh)
+    world = math.prod(sizes.values())
+
+    def one(axes, shape, stacked):
+        spec = spec_for(axes, rules, shape=tuple(shape), mesh=sizes)
+        for dim, part in enumerate(spec):
+            names = () if part is None else ((part,) if isinstance(
+                part, str) else tuple(part))
+            gathered = tuple(a for a in names if a in EXPERT_AXES)
+            # A one-rank mesh gathers too (each a copy), so it issues
+            # the collectives of a wider one.
+            if gathered and (math.prod(sizes[a] for a in gathered) > 1
+                             or world == 1):
+                if gathered != names:
+                    raise ValueError(f'axes {axes}: dim {dim} splits over '
+                                     f'{names}, of which only {gathered} '
+                                     'gather')
+                return (dim - 1 if stacked else dim, axes_key(gathered))
+        return None
+
+    def walk(axes, shapes_t, stacked):
+        if isinstance(axes, dict):
+            return {k: walk(axes[k], shapes_t[k], stacked or k == 'layers')
+                    for k in axes if k in shapes_t}
+        shape = shapes_t.shape if hasattr(shapes_t, 'shape') else shapes_t
+        return one(axes, shape, stacked)
+    return walk(logical_tree, shapes, False)
+
+
+def shard_axes(logical_tree: Any, shapes: Any, mesh,
+               rules: Optional['LogicalRules'] = None) -> Dict[str, Any]:
+    """For each leaf, the set of mesh axes its shards split over
+    (:func:`spec_for`, divisibility-aware)."""
+    sizes = _axis_sizes(mesh)
+
+    def walk(axes, shapes_t):
+        if isinstance(axes, dict):
+            return {k: walk(axes[k], shapes_t[k]) for k in axes
+                    if k in shapes_t}
+        shape = shapes_t.shape if hasattr(shapes_t, 'shape') else shapes_t
+        spec = spec_for(axes, rules, shape=tuple(shape), mesh=sizes)
+        out = set()
+        for part in spec:
+            if part is not None:
+                out.update((part,) if isinstance(part, str) else part)
+        return frozenset(a for a in out if sizes[a] > 1)
+    return walk(logical_tree, shapes)
+
+
+class _Exchange(torch.autograd.Function):
+    """Point-to-point sends over one axis's group in ONE batch: tensor
+    ``i`` goes to ``perms[i][index]`` and its replacement comes from the
+    index that maps to this one. The backward sends the gradients back
+    along the inverse maps."""
+
+    @staticmethod
+    def forward(ctx, mesh, axis, perms, *xs):
+        ctx.mesh, ctx.axis, ctx.perms = mesh, axis, perms
+        return _p2p(mesh, axis, perms, xs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        inv = tuple({dst: src for src, dst in p.items()}
+                    for p in ctx.perms)
+        return (None, None, None) + _p2p(ctx.mesh, ctx.axis, inv, gs)
+
+
+def _p2p(mesh, axis, perms, xs) -> Tuple[torch.Tensor, ...]:
+    """One batch of sends and receives over ``axis`` (tag = tensor
+    index)."""
+    import torch.distributed as dist
+    me = mesh.axis_index(axis)
+    g = mesh.group(axis)
+    members = next(r for r in group_ranks(mesh.shape, axis)
+                   if mesh.rank in r)
+    outs: List[Optional[torch.Tensor]] = []
+    ops = []
+    for i, (x, perm) in enumerate(zip(xs, perms)):
+        x = x.contiguous()
+        dst = perm[me]
+        src = next(r for r, d in perm.items() if d == me)
+        _note('permute', axis, x)
+        if dst == me:
+            outs.append(x.clone())
+            continue
+        buf = torch.empty_like(x)
+        ops.append(dist.P2POp(dist.isend, x, members[dst], group=g, tag=i))
+        ops.append(dist.P2POp(dist.irecv, buf, members[src], group=g,
+                              tag=i))
+        outs.append(buf)
+    if ops:
+        for w in dist.batch_isend_irecv(ops):
+            w.wait()
+    return tuple(outs)
+
+
+def exchange(xs: Sequence[torch.Tensor], perms: Sequence[Dict[int, int]],
+             axis: str = 'sp') -> Tuple[torch.Tensor, ...]:
+    """Send each of ``xs`` over the active training mesh's ``axis`` group
+    to the index its map in ``perms`` names ({src: dst} over that axis),
+    receiving its counterpart; differentiable (the gradients travel back
+    along the inverse maps). All in one batch of sends."""
+    sc = training()
+    return _Exchange.apply(sc.mesh, axis, tuple(dict(p) for p in perms),
+                           *xs)
+
+
+class _AllToAll(torch.autograd.Function):
+    """All-to-all over sp of several tensors in one collective: tensor
+    ``i``'s ``split_dim`` is cut into sp blocks, block ``j`` goes to sp
+    rank ``j``, and the blocks received are concatenated along
+    ``concat_dim`` in rank order. The backward is the reverse
+    all-to-all."""
+
+    @staticmethod
+    def forward(ctx, mesh, split_dim, concat_dim, *xs):
+        ctx.mesh, ctx.dims = mesh, (split_dim, concat_dim)
+        return _a2a(mesh, split_dim, concat_dim, xs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        split_dim, concat_dim = ctx.dims
+        return (None, None, None) + _a2a(ctx.mesh, concat_dim, split_dim,
+                                         gs)
+
+
+def _a2a(mesh, split_dim, concat_dim, xs) -> Tuple[torch.Tensor, ...]:
+    import torch.distributed as dist
+    n = mesh.axis_size('sp')
+    blocks = [list(x.chunk(n, dim=split_dim)) for x in xs]
+    shapes = [b[0].shape for b in blocks]
+    send = torch.cat([torch.cat([b[j].reshape(-1) for b in blocks])
+                      for j in range(n)])
+    if not _note('all_to_all', 'sp', send):
+        recv = send
+    elif mesh.group('sp') is None:
+        recv = send
+    else:
+        recv = torch.empty_like(send)
+        dist.all_to_all_single(recv, send, group=mesh.group('sp'))
+    per = recv.numel() // n
+    out = []
+    off = 0
+    for shape in shapes:
+        m = math.prod(shape)
+        out.append(torch.cat([recv[j * per + off:j * per + off + m]
+                              .view(shape) for j in range(n)],
+                             dim=concat_dim))
+        off += m
+    return tuple(out)
+
+
+def all_to_all(xs: Sequence[torch.Tensor], split_dim: int,
+               concat_dim: int) -> Tuple[torch.Tensor, ...]:
+    """The differentiable all-to-all of ``xs`` over the active training
+    mesh's sp group (see :class:`_AllToAll`)."""
+    sc = training()
+    return _AllToAll.apply(sc.mesh, split_dim, concat_dim, *xs)
+
+
+# --------------------------------------------------------------------------
 # The serving mesh: one process per rank
 # --------------------------------------------------------------------------
 def _to_wire(obj):
@@ -713,10 +1287,11 @@ class FollowerDied(RuntimeError):
 
 
 class ServingMesh:
-    """One rank's view of the serving mesh: its rank and coordinates,
-    its device, the ``DeviceMesh`` and its tp and dp process groups, and
-    (on rank 0) the follower processes it started and the control
-    channel. ``store_path`` is the rendezvous: a file path (a
+    """One rank's view of a mesh, serving (tp, dp) or training (all six
+    axes; the name is the serving mesh's, which came first): its rank
+    and coordinates, its device, its process group over each axis
+    combination of :data:`GROUP_AXES`, and (on rank 0) the follower
+    processes it started and the control channel. ``store_path`` is the rendezvous: a file path (a
     ``FileStore`` on one host) or a ``tcp://host:port`` URL (rank 0
     hosts the store; :func:`gang_mesh`). ``local_rank`` names this
     rank's card on its host (default: ``rank``)."""
@@ -724,20 +1299,15 @@ class ServingMesh:
     def __init__(self, spec: MeshSpec, rank: int, device_type: str,
                  store_path: str, timeout_s: float, procs=(),
                  tmpdir: Optional[str] = None,
-                 local_rank: Optional[int] = None):
+                 local_rank: Optional[int] = None,
+                 startup_timeout_s: Optional[float] = None):
         import torch.distributed as dist
-        from torch.distributed.device_mesh import init_device_mesh
-        if spec.shape[:2] != (1, 1) or spec.fsdp != 1 or spec.sp != 1:
-            raise NotImplementedError(
-                f'MeshSpec {spec.shape}: only serving meshes (tp, dp) are '
-                'ported; fsdp/sp/pp/slices wait for the training meshes '
-                '(ROADMAP item 4)')
         self.spec = spec
         self.rank = rank
         self.size = spec.num_devices
         self.shape = dict(zip(MESH_AXES, spec.shape))
-        c = _coords(self.shape, rank)
-        self.tp_rank, self.dp_rank = c['tp'], c['dp']
+        self.coords = _coords(self.shape, rank)
+        self.tp_rank, self.dp_rank = self.coords['tp'], self.coords['dp']
         self.device = local_rank_device(
             rank if local_rank is None else local_rank, device_type)
         self.timeout_s = float(timeout_s)
@@ -750,21 +1320,38 @@ class ServingMesh:
         self.closed = False
         self.broken: Optional[str] = None
         timeout = datetime.timedelta(seconds=self.timeout_s)
+        # The start-up rendezvous waits ``startup_timeout_s`` (default:
+        # the mesh's timeout) for every rank's process to come up; the
+        # groups made after it carry the mesh's own timeout.
         kw: Dict[str, Any] = dict(
             backend='nccl' if device_type == 'cuda' else 'gloo',
             init_method=(store_path if '://' in store_path
                          else f'file://{store_path}'),
             world_size=self.size,
-            rank=rank, timeout=timeout)
+            rank=rank, timeout=datetime.timedelta(
+                seconds=startup_timeout_s or self.timeout_s))
         if device_type == 'cuda':
             torch.cuda.set_device(self.device)
             kw['device_id'] = self.device
+        _reset_group_names()
         dist.init_process_group(**kw)
-        self.device_mesh = init_device_mesh(
-            device_type, (spec.dp, spec.tp), mesh_dim_names=('dp', 'tp'))
-        self._groups = {'tp': self.device_mesh.get_group('tp'),
-                        'dp': self.device_mesh.get_group('dp')}
+        # One group per axis combination with more than one rank (every
+        # rank takes part in creating each, in the same order). A
+        # one-rank mesh runs every axis on the world group, so its
+        # collectives are issued (each a copy); a one-rank axis of a
+        # larger mesh has no group and its collectives copy nothing.
+        self._groups: Dict[Tuple[str, ...], Any] = {}
+        for axes in GROUP_AXES:
+            lists = group_ranks(self.shape, axes)
+            if self.size == 1:
+                self._groups[axes] = dist.group.WORLD
+            elif len(lists[0]) > 1:
+                self._groups[axes], _ = dist.new_subgroups_by_enumeration(
+                    lists, timeout=timeout)
         self._ctrl = dist.new_group(backend='gloo', timeout=timeout)
+        # The doorbell: an idle follower waits here for rank 0's next
+        # message (rank 0's pinger keeps the wait alive, :meth:`_ping`).
+        self._bell = dist.new_group(backend='gloo', timeout=timeout)
         # Every group's communicator set up now, eagerly: a lazy NCCL
         # init inside a CUDA graph capture fails.
         for g in self._groups.values():
@@ -775,20 +1362,48 @@ class ServingMesh:
                             group=g)
         if device_type == 'cuda':
             torch.cuda.synchronize(self.device)
+        self._stop_ping = threading.Event()
+        if self.is_leader and self.size > 1:
+            threading.Thread(target=self._ping, name='mesh-doorbell',
+                             daemon=True).start()
 
     # ----------------------------------------------------------- queries
     @property
     def is_leader(self) -> bool:
         return self.rank == 0
 
-    def group(self, axis: str):
-        if axis not in self._groups:
-            raise ValueError(f'no process group for mesh axis {axis!r}')
-        return self._groups[axis]
+    def group(self, axis):
+        """The process group of this rank over ``axis`` (a name or a
+        tuple of names), or None when those axes hold one rank of a
+        larger mesh (a collective over them copies nothing)."""
+        key = axes_key(axis)
+        if key not in GROUP_AXES:
+            raise ValueError(f'no process group for mesh axes {key!r}')
+        return self._groups.get(key)
+
+    def axis_size(self, axis) -> int:
+        """Ranks over ``axis`` (a name or a tuple of names)."""
+        return math.prod(self.shape[a] for a in axes_key(axis))
+
+    def axis_index(self, axis) -> int:
+        """This rank's index over ``axis`` (a name or a tuple of names:
+        the row-major index, its rank in that group)."""
+        idx = 0
+        for a in axes_key(axis):
+            idx = idx * self.shape[a] + self.coords[a]
+        return idx
+
+    @property
+    def is_serving(self) -> bool:
+        """Whether this is a serving layout: (tp, dp) only."""
+        return all(self.shape[a] == 1 for a in
+                   ('slice', 'pp', 'fsdp', 'sp'))
 
     def __repr__(self) -> str:
-        return (f'ServingMesh(tp={self.shape["tp"]}, dp={self.shape["dp"]}, '
-                f'rank={self.rank}, device={self.device})')
+        shape = ', '.join(f'{a}={n}' for a, n in self.shape.items()
+                          if n > 1 or a in ('dp', 'tp'))
+        return (f'ServingMesh({shape}, rank={self.rank}, '
+                f'device={self.device})')
 
     def follower_pids(self) -> List[int]:
         return [p.pid for p in self._procs]
@@ -807,25 +1422,50 @@ class ServingMesh:
                 raise FollowerDied(self.broken)
 
     def send(self, msg: Tuple) -> None:
-        """Rank 0: one control message to every follower."""
+        """Rank 0: one control message to every follower (on the
+        doorbell, within the mesh's timeout)."""
         import torch.distributed as dist
         if self.size == 1:
             return
         self.check_followers()
         try:
             dist.broadcast_object_list([_to_wire(msg)], src=0,
-                                       group=self._ctrl)
+                                       group=self._bell)
         except Exception as e:
             self.broken = f'control broadcast failed: {e}'
             self.check_followers()
             raise FollowerDied(self.broken) from e
 
     def recv(self) -> Tuple:
-        """A follower: the next control message from rank 0."""
+        """A follower: the next control message from rank 0 other than
+        a ping. A doorbell that breaks (rank 0 gone) or stays silent
+        for the mesh's timeout (rank 0 stalled, its host lost) raises
+        :class:`FollowerDied`."""
         import torch.distributed as dist
-        box = [None]
-        dist.broadcast_object_list(box, src=0, group=self._ctrl)
-        return box[0]
+        while True:
+            box = [None]
+            try:
+                dist.broadcast_object_list(box, src=0, group=self._bell)
+            except Exception as e:
+                self.broken = f'rank 0 is gone: {e}'
+                raise FollowerDied(self.broken) from e
+            if box[0][0] != 'ping':
+                return box[0]
+
+    def _ping(self) -> None:
+        """Rank 0's pinger thread: ring the doorbell with a no-op every
+        ``PING_FRACTION`` of the timeout while the mesh is idle (the
+        mesh lock held, so a ring never falls inside a call). A ring
+        that fails marks the mesh broken; the next call raises
+        :class:`FollowerDied`."""
+        while not self._stop_ping.wait(self.timeout_s * PING_FRACTION):
+            with self._lock:
+                if self.closed or self.broken:
+                    return
+                try:
+                    self.send(('ping',))
+                except FollowerDied:
+                    return
 
     def min_over_ranks(self, value: int) -> int:
         """The least of ``value`` over every rank (the control group)."""
@@ -920,9 +1560,10 @@ class ServingMesh:
 
     def close_engine(self, eid: int) -> None:
         if self.is_leader:
-            if not self.closed and not self.broken:
-                self.send(('close', eid))
-                self.agree(None)
+            with self._lock:
+                if not self.closed and not self.broken:
+                    self.send(('close', eid))
+                    self.agree(None)
         else:
             self.engines.pop(eid, None)
 
@@ -933,13 +1574,16 @@ class ServingMesh:
         import torch.distributed as dist
         if self.closed:
             return
-        self.closed = True
-        if self.is_leader and self.size > 1:
+        self._stop_ping.set()
+        leads = self.is_leader and self.size > 1
+        with self._lock:                 # no ring after the stop
+            self.closed = True
             try:
-                if not self.broken:
+                if leads and not self.broken:
                     self.send(('stop',))
             except FollowerDied:
                 pass
+        if leads:
             _reap(self._procs, timeout_s)
         self.engines.clear()
         abort_broken_group(self)
@@ -984,8 +1628,9 @@ def make_mesh(spec: MeshSpec, *, device='cuda',
               timeout_s: float = DEFAULT_TIMEOUT_S,
               store_dir: Optional[str] = None,
               threads: Optional[int] = None) -> ServingMesh:
-    """Build the serving mesh of ``spec`` on ``device``'s type (one rank
-    per CUDA device, or per process on the CPU): start the followers
+    """Build the mesh of ``spec`` (serving or training) on ``device``'s
+    type (one rank per CUDA device, or per process on the CPU): start the
+    followers
     (ranks 1.., ``parallel/follower.py``) and join as rank 0. Unlike
     :func:`serving_mesh` it builds a one-rank mesh too (a one-rank NCCL
     group: every collective a copy). ``store_dir`` holds the rendezvous
@@ -1022,13 +1667,14 @@ def make_mesh(spec: MeshSpec, *, device='cuda',
                   if p])
     procs = [subprocess.Popen(
         [sys.executable, '-m', 'skypilot_tpu_torch.parallel.follower',
-         '--rank', str(r), '--tp', str(spec.tp), '--dp', str(spec.dp),
+         '--rank', str(r), '--shape', ','.join(map(str, spec.shape)),
          '--device-type', device_type, '--store', store_path,
          '--timeout-s', str(timeout_s), '--threads', str(threads or 1)],
         env=env, stdin=subprocess.DEVNULL) for r in range(1, n)]
     try:
         return ServingMesh(spec, 0, device_type, store_path, timeout_s,
-                           procs, tmpdir)
+                           procs, tmpdir, startup_timeout_s=max(
+                               timeout_s, STARTUP_TIMEOUT_S))
     except BaseException:
         for p in procs:
             p.kill()
@@ -1087,6 +1733,19 @@ def _backend(device) -> str:
     return 'gloo'
 
 
+def _reset_group_names() -> None:
+    """With no process group up, restart torch's per-process group counter
+    at 0. torch names each group from that counter and resets it only when
+    a world is destroyed; an ``init_process_group`` that failed (a peer that
+    never came) leaves it raised, and this process's next default group
+    would then be named otherwise than its peers' (fresh processes count
+    from 0): their rendezvous would never meet."""
+    import torch.distributed as dist
+    from torch.distributed import distributed_c10d
+    if not dist.is_initialized():
+        distributed_c10d._world.group_count = 0
+
+
 def _init_default_group(addr: str, rank: int, world: int,
                         timeout_s: float, device) -> bool:
     """Join the default process group at ``tcp://addr`` (idempotent:
@@ -1095,6 +1754,7 @@ def _init_default_group(addr: str, rank: int, world: int,
     import torch.distributed as dist
     if dist.is_initialized():
         return True
+    _reset_group_names()
     dist.init_process_group(
         backend=_backend(device), init_method=f'tcp://{addr}',
         world_size=int(world), rank=int(rank),
@@ -1161,6 +1821,33 @@ def gang_mesh(tp: int, dp: int, *, coordinator_url: str, rank: int,
                        timeout_s, local_rank=local_rank)
 
 
+def launched_mesh(spec: MeshSpec, *, device='cuda',
+                  timeout_s: float = DEFAULT_TIMEOUT_S) -> ServingMesh:
+    """This node's rank of the training mesh of a launched multi-node job
+    (the training launch contract: ``SKYTPU_COORDINATOR_ADDRESS``
+    ``host:port``, ``SKYTPU_NUM_NODES``, ``SKYTPU_NODE_RANK``; one
+    process a node, on its ``LOCAL_RANK`` card), met at
+    ``tcp://SKYTPU_COORDINATOR_ADDRESS`` (node 0 hosts the store).
+    Nothing is spawned: node 0 leads, and a nonzero rank runs
+    ``parallel/follower.py``'s loop on the mesh returned. ``spec`` must
+    have one rank a node."""
+    import torch.distributed as dist
+    coord = os.environ.get('SKYTPU_COORDINATOR_ADDRESS')
+    nodes = int(os.environ.get('SKYTPU_NUM_NODES', '1') or 1)
+    if not coord:
+        raise RuntimeError('launched_mesh needs SKYTPU_COORDINATOR_ADDRESS')
+    if spec.num_devices != nodes:
+        raise ValueError(f'mesh {spec.shape} has {spec.num_devices} ranks '
+                         f'but the job has {nodes} nodes')
+    _backend(device)
+    if dist.is_initialized():
+        raise RuntimeError('a process group is already up in this process')
+    rank = int(os.environ.get('SKYTPU_NODE_RANK', '0') or 0)
+    return ServingMesh(spec, rank, torch.device(device).type,
+                       f'tcp://{coord}', timeout_s,
+                       local_rank=int(os.environ.get('LOCAL_RANK', '0')))
+
+
 # --------------------------------------------------------------------------
 # Mirrored engine calls
 # --------------------------------------------------------------------------
@@ -1192,6 +1879,11 @@ def mirrored_init(init):
         if not isinstance(mesh, ServingMesh):
             raise TypeError(f'mesh must be a ServingMesh (serving_mesh / '
                             f'make_mesh), got {type(mesh).__name__}')
+        if not mesh.is_serving:
+            raise ValueError(
+                f'{type(self).__name__} serves on a (tp, dp) mesh '
+                f'(MeshSpec.for_serving); {mesh!r} has training axes '
+                '(fsdp, sp, pp or slices)')
         wire = {k: v for k, v in kwargs.items() if k not in ('mesh',
                                                              'device')}
         if mesh.size > 1 and _wire_bytes((args, wire)) > \

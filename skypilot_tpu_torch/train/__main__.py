@@ -25,7 +25,16 @@ the final adapters alone (``Trainer.save_adapter``):
         --from-pretrained /ckpt/llama3-8b --data corpus/ --lora-rank 16 \\
         --lora-alpha 32 --adapter-out /ckpt/adapter
 
-``--tp`` and ``--sp`` > 1 (a mesh) are not ported and raise.
+``--tp N`` and ``--sp N`` train on a mesh (``Trainer(mesh_spec=
+mesh.spec_from_env(tp=, sp=))``, as the reference builds it): the
+visible CUDA devices (on the CPU, ``tp * sp`` gloo ranks, one process
+each), everything not tp or sp going to fsdp, and ``SKYTPU_NUM_SLICES``
+honoured. A launched multi-node job (``SKYTPU_COORDINATOR_ADDRESS``,
+``SKYTPU_NUM_NODES`` > 1, ``SKYTPU_NODE_RANK``; one process a node, on
+its ``LOCAL_RANK`` card) meets over ``tcp://`` (``mesh.launched_mesh``):
+node 0 runs the training loop and reads the data, every other node runs
+the follower loop (``parallel/follower.py``). ``--batch`` must divide by
+the mesh's data axes (slice x dp x fsdp), ``--seq`` by ``--sp``.
 """
 from __future__ import annotations
 
@@ -76,16 +85,10 @@ def main(argv=None) -> None:
                         help="'cuda' (default) or 'cpu'")
     args = parser.parse_args(argv)
 
-    for flag, on in (('--tp', args.tp), ('--sp', args.sp > 1)):
-        if on:
-            raise NotImplementedError(
-                f'{flag} is not ported (ROADMAP §1 item 8: a mesh)')
-
     from skypilot_tpu_torch.models import configs
-    from skypilot_tpu_torch.models.tokenizer import load_tokenizer
-    from skypilot_tpu_torch.train.data import TokenStream, packed_batches
+    from skypilot_tpu_torch.parallel import follower
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
     from skypilot_tpu_torch.train.trainer import TrainConfig, Trainer
-    from skypilot_tpu_torch.utils.device import host_scalars
 
     cfg = configs.get_config(args.model)
     if args.lora_rank > 0:
@@ -93,13 +96,48 @@ def main(argv=None) -> None:
             cfg, lora_rank=args.lora_rank, lora_alpha=args.lora_alpha,
             lora_targets=tuple(
                 t.strip() for t in args.lora_targets.split(',') if t))
-    trainer = Trainer(
-        cfg, device=args.device,
-        train_config=TrainConfig(learning_rate=args.lr,
-                                 warmup_steps=args.warmup_steps,
-                                 total_steps=args.steps,
-                                 attn_impl=args.attn_impl,
-                                 mu_dtype=args.mu_dtype))
+    tc = TrainConfig(learning_rate=args.lr, warmup_steps=args.warmup_steps,
+                     total_steps=args.steps, attn_impl=args.attn_impl,
+                     mu_dtype=args.mu_dtype)
+    nodes = int(os.environ.get('SKYTPU_NUM_NODES', '1') or 1)
+    launched = nodes > 1 and bool(os.environ.get(
+        'SKYTPU_COORDINATOR_ADDRESS'))
+    spec = None
+    if args.tp or args.sp > 1 or launched:
+        on_cpu = args.device == 'cpu'
+        spec = mesh_lib.spec_from_env(
+            tp=args.tp, sp=args.sp,
+            num_devices=(nodes if launched else
+                         (args.tp or 1) * args.sp if on_cpu else None))
+    if launched:
+        mesh = mesh_lib.launched_mesh(spec, device=args.device)
+        if not mesh.is_leader:
+            follower.serve(mesh)
+            return
+        trainer = Trainer(cfg, mesh=mesh, train_config=tc)
+    else:
+        trainer = Trainer(cfg, mesh_spec=spec, train_config=tc,
+                          device=args.device)
+    try:
+        _train(args, cfg, trainer)
+    finally:
+        trainer.close()
+        if launched:
+            trainer.mesh.shutdown()
+
+
+def _train(args, cfg, trainer) -> None:
+    """Restore or initialize, then run the steps, logging and saving."""
+    from skypilot_tpu_torch.models.tokenizer import load_tokenizer
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    from skypilot_tpu_torch.train.data import TokenStream, packed_batches
+    from skypilot_tpu_torch.utils.device import host_scalars
+    data_axis = mesh_lib.data_axis_size(trainer.mesh)
+    if args.batch % data_axis:
+        raise SystemExit(
+            f'--batch {args.batch} must be divisible by the mesh data-'
+            f'parallel degree {data_axis} (slice*dp*fsdp); pick a '
+            f'multiple or reduce the mesh with --tp/--sp')
 
     # ---- state: restore > fine-tune > fresh ----
     start_step = 0

@@ -24,7 +24,7 @@ reference's step donates its state the same way).
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, NamedTuple
+from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -119,12 +119,17 @@ class AdamW:
             nu=tree_map(torch.zeros_like, params))
 
     @torch.no_grad()
-    def update(self, grads: Tree, state: AdamWState, params: Tree):
+    def update(self, grads: Tree, state: AdamWState, params: Tree,
+               norm: Optional[torch.Tensor] = None):
         """One step: params, mu and nu updated in place. Returns (the new
-        state, the global norm of ``grads`` before clipping)."""
+        state, the global norm of ``grads`` before clipping). ``norm``
+        is that global norm when the caller computed it (a training
+        mesh's, over every rank's shards); by default it is ``grads``'s
+        own."""
         f32 = np.float32
         b1, b2 = self.b1, self.b2
-        norm = global_norm(grads)
+        if norm is None:
+            norm = global_norm(grads)
         keep = norm < self.clip
         count = state.count + 1
         bc1 = float(f32(1) - f32(b1) ** f32(count))

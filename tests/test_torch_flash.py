@@ -139,7 +139,9 @@ def test_reference_attention_offsets_match_jax(with_offset):
 def test_cpu_dispatch_resolves_to_the_plain_paths():
     """On the CPU ``auto`` takes the plain paths (as the reference does
     off the TPU) and launches nothing; ``flash`` runs the kernel's plain
-    version; the sequence-parallel impls are not ported."""
+    version; the sequence-parallel impls outside a training mesh with sp
+    > 1 take the plain path, as the reference's do without an sp mesh
+    (on a mesh: ``tests/test_torch_seq_parallel.py``)."""
     q, k, v, ck, cv = _arrays(5, (2, 64, 4, 64), (2, 64, 2, 64),
                               (2, 64, 2, 64), (2, 32, 2, 64), (2, 32, 2, 64))
     q, k, v, ck, cv = map(_t, (q, k, v, ck, cv))
@@ -157,7 +159,7 @@ def test_cpu_dispatch_resolves_to_the_plain_paths():
         rtol=0, atol=ATOL)
     assert tfa.launch_counts == before
     for impl in ('ring', 'ulysses'):
-        with pytest.raises(NotImplementedError):
-            tattn.attention(q, k, v, impl=impl)
+        assert torch.equal(tattn.attention(q, k, v, impl=impl),
+                           tattn.reference_attention(q, k, v))
     with pytest.raises(ValueError, match='unknown attention impl'):
         tattn.attention(q, k, v, impl='nope')

@@ -1,5 +1,5 @@
-"""The serving mesh's pure functions (``skypilot_tpu_torch/parallel/
-mesh.py``, ``serve/placement.py``) held against the JAX package's
+"""The mesh's pure functions (``skypilot_tpu_torch/parallel/mesh.py``,
+``serve/placement.py``) held against the JAX package's
 ``skypilot_tpu/parallel/mesh.py`` and ``serve/placement.py`` on the CPU,
 with no process started: ``MeshSpec``, ``serving_spec_from_env``,
 ``spec_for`` and ``axis_shard_degree`` on every leaf of
@@ -12,6 +12,13 @@ scale group raises), and the placement policy.
 The reference's meshes of up to 8 devices are real (``tests/
 conftest.py`` forces 8 virtual CPU devices); the 16-device shapes use a
 stand-in with the same ``shape`` mapping, all that ``spec_for`` reads.
+
+Five tests start follower processes: a training mesh (fsdp 2) builds
+with a process group per axis and a serving engine refuses it; the
+waits between calls (an idle follower outlives the mesh's group
+timeout; a follower exits within a bound once its rank 0 is killed or
+stalls; a stalled follower makes rank 0 raise within a bound); and a
+mesh builds in a process whose earlier bootstrap failed.
 """
 import dataclasses
 import types
@@ -126,8 +133,19 @@ def test_meshless_defaults_and_device_checks():
         with pytest.raises(RuntimeError, match='CUDA device 1'):
             local_rank_device(1, 'cuda')
     assert local_rank_device(3, 'cpu') == torch.device('cpu')
-    with pytest.raises(NotImplementedError, match='training meshes'):
-        mesh_lib.make_mesh(mesh_lib.MeshSpec(fsdp=2), device='cpu')
+    # A training mesh builds (a process group over each axis with more
+    # than one rank); the serving engines refuse its training axes.
+    m = mesh_lib.make_mesh(mesh_lib.MeshSpec(fsdp=2), device='cpu',
+                           timeout_s=60.0)
+    try:
+        assert m.shape['fsdp'] == 2 and not m.is_serving
+        assert m.group('fsdp') is not None and m.group('tp') is None
+        assert m.axis_size(mesh_lib.DATA_AXES) == 2
+        with pytest.raises(ValueError, match='training axes'):
+            tengine.InferenceEngine(configs.TINY, None, max_batch=1,
+                                    max_seq=32, device='cpu', mesh=m)
+    finally:
+        m.shutdown()
 
 
 def test_tp_plan_and_shard_config():
@@ -271,16 +289,22 @@ def test_cut_as_drawn_and_as_read_equals_the_shard_of_the_whole(
     assert not list(tmp_path.glob('.*_cache.bin'))
 
 
-def test_moe_and_lora_have_no_logical_axes_yet():
-    """MoE leaves have the reference's logical axes now (their specs:
-    ``tests/test_torch_mesh_options.py``); a config with trained LoRA
-    adapters still has none (its serving engine merges them first)."""
+def test_moe_and_lora_logical_axes_match_the_reference():
+    """MoE leaves have the reference's logical axes (their specs:
+    ``tests/test_torch_mesh_options.py``), and so do a LoRA config's
+    trained adapters (``lora.lora_logical_axes``), on every target."""
     moe_cfg = configs.get_config('tiny-moe')
     assert llama.param_logical_axes(moe_cfg) == jllama.param_logical_axes(
         jconfigs.get_config('tiny-moe'))
-    with pytest.raises(NotImplementedError, match='LoRA'):
-        llama.param_logical_axes(dataclasses.replace(configs.TINY,
-                                                     lora_rank=4))
+    targets = ('wq', 'wk', 'wv', 'wo', 'w_gate', 'w_up', 'w_down')
+    got = llama.param_logical_axes(dataclasses.replace(
+        configs.TINY, lora_rank=4, lora_targets=targets))
+    want = jllama.param_logical_axes(dataclasses.replace(
+        jconfigs.TINY, lora_rank=4, lora_targets=targets))
+    assert got == want
+    assert got['layers']['lora']['wo'] == {
+        'a': ('layers', 'heads', 'head_dim', None),
+        'b': ('layers', None, 'embed')}
 
 
 def test_quantize_logical_axes_matches_the_reference():
@@ -322,3 +346,136 @@ def test_placement_matches_the_reference(name):
                         dataclasses.asdict(want)
                     assert got.as_env() == want.as_env()
                     assert got.chips == want.chips
+
+
+# ------------------------------------------------------------ the follower
+def _tiny_engine(mesh):
+    return tengine.InferenceEngine(
+        dataclasses.replace(configs.TINY, dtype=torch.float32), None,
+        max_batch=1, max_seq=32, device='cpu', mesh=mesh)
+
+
+def _serve_one(eng):
+    rid = eng.add_request([1, 2, 3], max_new_tokens=2)
+    return eng.run_to_completion(horizon=2)[rid].output
+
+
+def test_idle_follower_outlives_the_group_timeout():
+    """An idle follower waits for rank 0's next call as long as rank 0
+    lives: a mesh with a 6 s timeout serves a call, rank 0 idles 7 s
+    (its pinger rings the doorbell meanwhile), and the next call still
+    succeeds (before the repair the follower's wait timed out and it
+    left the mesh)."""
+    import time
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    m = mesh_lib.serving_mesh(tp=2, device='cpu', timeout_s=6.0)
+    try:
+        eng = _tiny_engine(m)
+        first = _serve_one(eng)
+        time.sleep(7.0)
+        m.check_followers()
+        assert _serve_one(eng) == first
+    finally:
+        m.shutdown()
+        torch.set_num_threads(n)
+
+
+def _alive(pid):
+    try:
+        with open(f'/proc/{pid}/stat') as f:
+            return f.read().split()[2] != 'Z'
+    except FileNotFoundError:
+        return False
+
+
+@pytest.mark.parametrize('how', ['killed', 'stalled'])
+def test_follower_exits_when_rank_0_is_killed(how):
+    """A follower whose rank 0 goes between calls leaves within a bound
+    instead of waiting on the doorbell: at once when rank 0 is killed
+    (SIGKILL), and within the mesh's 5 s timeout when rank 0 stalls
+    (SIGSTOP: its process and connections live on, as when its host
+    is lost without a reset, but it rings no more)."""
+    import os
+    import signal
+    import subprocess
+    import sys
+    import time
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sig = 'SIGKILL' if how == 'killed' else 'SIGSTOP'
+    script = (
+        'import os, signal, sys, torch\n'
+        f'sys.path.insert(0, {root!r})\n'
+        'torch.set_num_threads(1)\n'
+        'from skypilot_tpu_torch.parallel import mesh as mesh_lib\n'
+        "m = mesh_lib.serving_mesh(tp=2, device='cpu', timeout_s=5.0)\n"
+        'print(m.follower_pids()[0], flush=True)\n'
+        f'os.kill(os.getpid(), signal.{sig})\n')
+    proc = subprocess.Popen([sys.executable, '-c', script],
+                            stdout=subprocess.PIPE, text=True)
+    try:
+        pid = int(proc.stdout.readline())
+        bound = 10.0 if how == 'killed' else 20.0
+        deadline = time.monotonic() + bound
+        while _alive(pid) and time.monotonic() < deadline:
+            time.sleep(0.1)
+        assert not _alive(pid), \
+            f'follower {pid} still waiting {bound} s after rank 0 {how}'
+    finally:
+        proc.kill()
+        proc.wait(30)
+        proc.stdout.close()
+
+
+def test_stalled_follower_fails_rank_0_within_the_timeout():
+    """A follower that stops answering (SIGSTOP: alive to ``poll`` and
+    connected, as one whose host is lost without a reset) makes rank 0
+    raise :class:`FollowerDied` within a bound of a few timeouts (the
+    doorbell ring, the call's collectives and the agreement each wait
+    at most the mesh's 5 s), instead of waiting on it."""
+    import os
+    import signal
+    import time
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    m = mesh_lib.serving_mesh(tp=2, device='cpu', timeout_s=5.0)
+    pid = m.follower_pids()[0]
+    try:
+        eng = _tiny_engine(m)
+        _serve_one(eng)
+        os.kill(pid, signal.SIGSTOP)
+        t0 = time.monotonic()
+        with pytest.raises(mesh_lib.FollowerDied):
+            _serve_one(eng)
+        assert time.monotonic() - t0 < 25.0
+    finally:
+        os.kill(pid, signal.SIGKILL)
+        m.shutdown()
+        torch.set_num_threads(n)
+
+
+def test_a_mesh_builds_after_a_failed_bootstrap():
+    """A bootstrap whose peer never came (``initialize_gang_distributed``
+    over a world of 2, alone) raises within its timeout and leaves no
+    process group, and a mesh built next in the same process serves:
+    torch's group counter, which the failed init left raised, restarts
+    at 0, so rank 0 names its default group as its fresh followers do
+    (before the repair their rendezvous never met)."""
+    import socket
+    import torch.distributed as dist
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        port = s.getsockname()[1]
+    with pytest.raises(Exception):
+        mesh_lib.initialize_gang_distributed(
+            f'http://127.0.0.1:{port - 1000}', 0, 2, device='cpu',
+            timeout_s=1.0)
+    assert not dist.is_initialized()
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    m = mesh_lib.serving_mesh(tp=2, device='cpu', timeout_s=60.0)
+    try:
+        assert len(_serve_one(_tiny_engine(m))) == 2
+    finally:
+        m.shutdown()
+        torch.set_num_threads(n)

@@ -320,18 +320,33 @@ def test_forward_aux_and_remat_policies():
         llama.forward(params, tokens, _tcfg('everything'))
 
 
-def test_unported_training_options_raise(tmp_path):
+def test_training_options_on_a_mesh(tmp_path, capsys):
+    """A mesh is ported: ``mesh_spec`` must be a ``MeshSpec``; a LoRA
+    config builds a trainer; ``--tp 2`` and ``--sp 2`` train a few steps
+    on a local corpus over a gloo mesh (2 ranks each on the CPU) with a
+    falling loss. Object-store corpora still raise."""
     cfg = _tcfg('none')
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match='MeshSpec'):
         ttrainer.Trainer(cfg, mesh_spec=object(), device='cpu')
-    # LoRA is ported: a LoRA config builds a trainer.
     trainer = ttrainer.Trainer(dataclasses.replace(cfg, lora_rank=4),
                                device='cpu')
     assert trainer.init(0).params['layers']['lora']
     corpus = _corpus(tmp_path)[0]
-    for flags in (['--tp', '2'], ['--sp', '2']):
-        with pytest.raises(NotImplementedError):
-            train_main(['--device', 'cpu', '--data', corpus] + flags)
+    n = torch.get_num_threads()
+    try:
+        for flags in (['--tp', '2'], ['--sp', '2']):
+            train_main(['--device', 'cpu', '--data', corpus, '--batch', '2',
+                        '--seq', '16', '--steps', '4', '--log-every', '2',
+                        '--lr', '1e-2', '--warmup-steps', '1'] + flags)
+            lines = [json.loads(x) for x in capsys.readouterr().out.split(
+                '\n') if x.startswith('{')]
+            assert [x['step'] for x in lines] == [2, 4], flags
+            assert lines[-1]['loss'] < lines[0]['loss'], (flags, lines)
+    finally:
+        torch.set_num_threads(n)
+    with pytest.raises(NotImplementedError):
+        train_main(['--device', 'cpu', '--data', 'gs://bucket/corpus',
+                    '--steps', '1'])
 
 
 def _remat_cfg(name, remat, lora_rank):
